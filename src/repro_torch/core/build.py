@@ -1,0 +1,111 @@
+"""Sharded SOAR index build: sample-trained codebook + streamed assignment
+(PyTorch port of `repro/core/build.py`).
+
+1. the VQ codebook trains on a `train_sample` row sample (k-means++ seeds,
+   Lloyd sweeps through the CUDA Lloyd kernel on the card);
+2. primary + SOAR assignments stream over `shard_size` row tiles through
+   `assign_fused` (the vq and soar CUDA kernels);
+3. CSR, residual PQ and rerank assembly go through `finalize_ivf`.
+
+`codebook=` / `pq=` freeze those stages (the rebuild contract the JAX
+package's mutation-equivalence tests pin). The router and anisotropic VQ
+options of the JAX package are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.ivf import IVFIndex, _phase, finalize_ivf
+from repro_torch.core.kmeans import train_kmeans
+from repro_torch.kernels.soar_assign import assign_fused
+from repro_torch.quant.pq import PQCodebook
+from repro_torch.utils import Device, as_tensor, resolve_device
+
+DEFAULT_TRAIN_SAMPLE = 131_072
+DEFAULT_SHARD = 65_536
+
+
+def spill_plan(spill_mode: str, lam: float, n_spills: int):
+    """Canonical (effective lam, effective spill count) per spill mode."""
+    if spill_mode == "none":
+        return 0.0, 0
+    if spill_mode == "naive":
+        return 0.0, 1
+    if spill_mode == "soar":
+        return lam, n_spills
+    raise ValueError(spill_mode)
+
+
+def train_codebook(gen: torch.Generator, X: torch.Tensor, n_partitions: int, *,
+                   train_sample: Optional[int] = DEFAULT_TRAIN_SAMPLE,
+                   train_iters: int = 15) -> torch.Tensor:
+    """Train the (to-be-frozen) VQ codebook on a row sample of X."""
+    n = X.shape[0]
+    if train_sample and n > train_sample:
+        sel = torch.randperm(n, generator=gen)[:train_sample]
+        Xt = X[sel.to(X.device)].contiguous()
+    else:
+        Xt = X
+    return train_kmeans(gen, Xt, n_partitions, iters=train_iters,
+                        final_assign=False).centroids
+
+
+def assign_shards(X: torch.Tensor, C: torch.Tensor, *, spill_mode: str = "soar",
+                  lam: float = 1.0, n_spills: int = 1,
+                  shard_size: int = DEFAULT_SHARD) -> torch.Tensor:
+    """Fused primary + spill assignment over `shard_size` row tiles of X.
+
+    X may lie on the host; each shard moves to C's device in turn. Returns
+    the (n, 1 + spills) int32 assignment matrix on C's device.
+    """
+    eff_lam, eff_spills = spill_plan(spill_mode, lam, n_spills)
+    n = X.shape[0]
+    out = torch.empty((n, 1 + eff_spills), dtype=torch.int32, device=C.device)
+    for i0 in range(0, n, shard_size):
+        blk = X[i0:i0 + shard_size].to(C.device)
+        out[i0:i0 + blk.shape[0]] = assign_fused(blk, C, lam=eff_lam,
+                                                 n_spills=eff_spills)
+    return out
+
+
+def build_ivf_sharded(gen: Optional[torch.Generator], X, n_partitions: int, *,
+                      spill_mode: str = "soar", lam: float = 1.0,
+                      n_spills: int = 1, pq_subspaces: int = 0,
+                      rerank: str = "f32", train_iters: int = 15,
+                      train_sample: Optional[int] = DEFAULT_TRAIN_SAMPLE,
+                      shard_size: int = DEFAULT_SHARD,
+                      codebook=None, pq: Optional[PQCodebook] = None,
+                      timings: Optional[dict] = None,
+                      device: Device = None) -> IVFIndex:
+    """Build a SOAR-spilled IVF(-PQ) index of X (numpy array or tensor).
+
+    gen: the build's random stream (None → seed 0); the k-means and PQ
+    stages draw from two generators seeded from it. `codebook=` (and
+    optionally `pq=`) skip training and build against the given frozen
+    stages. timings, when given, collects per-phase wall seconds (kmeans,
+    spill_assign, csr, pq_train, encode). Runs on `device` (CUDA unless the
+    caller passes "cpu").
+    """
+    dev = resolve_device(device)
+    if gen is None:
+        gen = torch.Generator().manual_seed(0)
+    seeds = torch.randint(0, 2 ** 62, (2,), generator=gen).tolist()
+    gkm = torch.Generator().manual_seed(seeds[0])
+    gpq = torch.Generator().manual_seed(seeds[1])
+    X = as_tensor(X, dev, torch.float32).contiguous()
+    with _phase(timings, "kmeans", dev):
+        if codebook is None:
+            C = train_codebook(gkm, X, n_partitions, train_sample=train_sample,
+                               train_iters=train_iters)
+        else:
+            C = as_tensor(codebook, dev, torch.float32).contiguous()
+    with _phase(timings, "spill_assign", dev):
+        assignments = assign_shards(X, C, spill_mode=spill_mode, lam=lam,
+                                    n_spills=n_spills, shard_size=shard_size)
+    if pq is not None:
+        pq = PQCodebook(as_tensor(pq.centers, dev, torch.float32))
+    return finalize_ivf(gpq, X, C, assignments, pq_subspaces=pq_subspaces,
+                        rerank=rerank, spill_mode=spill_mode, lam=lam, pq=pq,
+                        timings=timings)

@@ -1,0 +1,203 @@
+"""Candidate-local, fixed-budget ANN search over a spilled IVF index
+(PyTorch port of the jit path of `repro/core/search.py`, unfiltered).
+
+Pipeline per query tile: flat router probe top-t → gather each query's
+own (t·pmax) candidate window from the padded layout → PQ LUT scores of
+the window (the CUDA window kernel on the card) plus the coarse ⟨q, c⟩
+term → dedup-by-max over the window → top rerank_budget → exact f32
+rerank → top final_k. No intermediate scales with the database size n.
+
+Names follow the JAX package so each function's counterpart is easy to
+find; there is no jit here, PyTorch runs eagerly.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.ivf import IVFIndex
+from repro_torch.core.router import FlatRouter, check_query_dim
+from repro_torch.kernels.pq_score import pq_score_window
+from repro_torch.quant.pq import PQCodebook, pq_lut
+from repro_torch.utils import as_tensor
+
+_NEG_INF = float("-inf")
+
+
+class PackedIVF(NamedTuple):
+    """Dense, padded IVF layout for the fixed-budget search.
+
+    part_ids:   (c, pmax) int32 point ids, -1 padded
+    part_codes: (c, pmax, m) uint8 PQ codes (zeros where padded), or None
+    sizes:      (c,) int32
+    rerank:     (n, d) f32
+    """
+    centroids: torch.Tensor
+    part_ids: torch.Tensor
+    part_codes: Optional[torch.Tensor]
+    sizes: torch.Tensor
+    pq: Optional[PQCodebook]
+    rerank: torch.Tensor
+
+
+def pack_ivf(index: IVFIndex, pmax: Optional[int] = None) -> PackedIVF:
+    """Pack an IVFIndex into the dense padded layout (on its device).
+
+    pmax caps the partition width (default: the largest partition); an
+    explicit 0 packs all -1 sentinels at width 1.
+    """
+    c = index.n_partitions
+    dev = index.point_ids.device
+    sizes = index.partition_sizes()
+    if pmax is None:
+        pmax = int(sizes.max()) if sizes.numel() else 0
+    pmax = int(pmax)
+    width = max(pmax, 1)
+    m = index.codes.shape[1] if index.codes is not None else 0
+    ids = torch.full((c, width), -1, dtype=torch.int32, device=dev)
+    codes = (torch.zeros((c, width, m), dtype=torch.uint8, device=dev)
+             if m else None)
+    part = torch.repeat_interleave(torch.arange(c, device=dev), sizes)
+    pos = (torch.arange(index.n_assignments, device=dev)
+           - torch.repeat_interleave(index.starts[:-1], sizes))
+    keep = pos < pmax
+    ids[part[keep], pos[keep]] = index.point_ids[keep]
+    if m:
+        codes[part[keep], pos[keep]] = index.codes[keep]
+    return PackedIVF(index.centroids, ids, codes,
+                     sizes.clamp(max=pmax).to(torch.int32), index.pq,
+                     index.rerank_f32)
+
+
+def window_pq_scores(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """(nq, m, 16) LUTs × (nq, cand, m) uint8 window codes → (nq, cand)."""
+    return pq_score_window(luts, codes)
+
+
+def _topk_first(x: torch.Tensor, k: int):
+    """Top-k along the last axis with ties to the lowest index, as
+    `jax.lax.top_k` gives (a stable descending sort)."""
+    v, pos = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], pos[..., :k]
+
+
+def dedup_topk_window(ids: torch.Tensor, scores: torch.Tensor, k: int,
+                      multiplicity: int = 2):
+    """Candidate-local dedup-by-max + top-k over the last axis.
+
+    1. top multiplicity·k of the raw window — a point holds at most
+       `multiplicity` window slots, so this keeps every copy that could
+       reach the deduped top-k;
+    2. order that small set by (id asc, score desc), so the first slot of
+       each run of equal ids carries the id's best score; the other slots
+       and -1 padding become -inf before the final top-k.
+
+    Returns (ids (..., k) int32, scores (..., k)); k is clamped to the
+    window length.
+    """
+    w = ids.shape[-1]
+    raw = min(multiplicity * k, w)
+    if raw < w:
+        scores, pos = torch.topk(scores, raw, dim=-1)
+        ids = torch.gather(ids, -1, pos)
+    else:
+        scores, pos = _topk_first(scores, w)
+        ids = torch.gather(ids, -1, pos)
+    ids_s, pos = torch.sort(ids, dim=-1, stable=True)    # scores stay desc
+    scores_s = torch.gather(scores, -1, pos)
+    first = torch.ones_like(ids_s, dtype=torch.bool)
+    first[..., 1:] = ids_s[..., 1:] != ids_s[..., :-1]
+    scores_s = torch.where(first & (ids_s >= 0), scores_s, _NEG_INF)
+    v, pos = _topk_first(scores_s, min(k, w))
+    return torch.gather(ids_s, -1, pos).to(torch.int32), v
+
+
+def _pad_topk(ids: torch.Tensor, vals: torch.Tensor, k: int):
+    """Pad (..., k') top-k outputs to width k with -1 ids / -inf scores."""
+    short = k - ids.shape[-1]
+    if short <= 0:
+        return ids, vals
+    pad = ids.shape[:-1] + (short,)
+    return (torch.cat([ids, ids.new_full(pad, -1)], -1),
+            torch.cat([vals, vals.new_full(pad, _NEG_INF)], -1))
+
+
+def _search_pass(packed: PackedIVF, Q: torch.Tensor, router: FlatRouter,
+                 top_t: int, final_k: int, rerank_budget: int,
+                 multiplicity: int = 2):
+    """One fixed-top_t candidate-local pass → (ids, scores) (nq, final_k)."""
+    psc, parts = router.route(Q, top_t)                 # (nq, t)
+    ids = packed.part_ids[parts]                        # (nq, t, pmax)
+    nq, t, pmax = ids.shape
+    ids = ids.reshape(nq, t * pmax)
+    valid = ids >= 0
+    if packed.part_codes is None:
+        # no PQ stage: exact-score the whole window; rerank_budget unused
+        rows = ids.clamp(min=0).to(torch.int64)
+        exact = torch.einsum("qwd,qd->qw", packed.rerank[rows], Q)
+        exact = torch.where(valid, exact, _NEG_INF)
+        di, dv = dedup_topk_window(ids, exact, final_k, multiplicity)
+        return _pad_topk(di, dv, final_k)
+    luts = pq_lut(packed.pq, Q)                                   # (nq, m, 16)
+    codes = packed.part_codes[parts].reshape(nq, t * pmax, -1)
+    approx = window_pq_scores(luts, codes)
+    approx = approx + torch.repeat_interleave(psc, pmax, dim=-1)  # + ⟨q, c⟩
+    approx = torch.where(valid, approx, _NEG_INF)
+    bi, bv = dedup_topk_window(ids, approx, rerank_budget, multiplicity)
+    exact = torch.einsum("qbd,qd->qb",
+                         packed.rerank[bi.clamp(min=0).to(torch.int64)], Q)
+    exact = torch.where(torch.isfinite(bv), exact, _NEG_INF)
+    fv, fpos = _topk_first(exact, min(final_k, exact.shape[-1]))
+    return _pad_topk(torch.gather(bi, -1, fpos), fv, final_k)
+
+
+def _search_block(packed: PackedIVF, Q: torch.Tensor, top_t: int, final_k: int,
+                  rerank_budget: int, multiplicity: int = 2):
+    router = FlatRouter(packed.centroids)
+    check_query_dim(Q, packed.centroids.shape[1])
+    return _search_pass(packed, Q, router, router.clamp(top_t), final_k,
+                        rerank_budget, multiplicity)
+
+
+def search_jit(packed: PackedIVF, Q, top_t: int, final_k: int,
+               rerank_budget: int = 256, multiplicity: int = 2):
+    """Batched search of all of Q at once → (ids (nq, final_k) int32,
+    scores (nq, final_k)). Q: (nq, d) numpy array or tensor."""
+    Q = as_tensor(Q, packed.centroids.device, torch.float32)
+    return _search_block(packed, Q, top_t, final_k, rerank_budget, multiplicity)
+
+
+def bq_bucket(nq: int, bq: int) -> int:
+    """Power-of-two query-count bucket (≥ 8), capped at the tile size."""
+    return min(bq, max(8, 1 << (max(nq, 1) - 1).bit_length()))
+
+
+def pad_queries(Q: np.ndarray, bq_cap: int, multiple: int = 1):
+    """Host-side bucket padding: (nq, d) → (padded Q, nq, bucket)."""
+    Q = np.atleast_2d(np.asarray(Q, np.float32))
+    nq = Q.shape[0]
+    bq = bq_bucket(nq, bq_cap)
+    step = bq * multiple // np.gcd(bq, multiple) if multiple > 1 else bq
+    pad = (-nq) % step
+    Qp = np.pad(Q, ((0, pad), (0, 0))) if pad else Q
+    return Qp, nq, bq
+
+
+def search_jit_batched(packed: PackedIVF, Q, top_t: int, final_k: int,
+                       rerank_budget: int = 256, bq: int = 128,
+                       multiplicity: int = 2):
+    """`search_jit` over bq-query tiles, so live buffers stay
+    O(bq·top_t·pmax) whatever nq. Every stage is query-local, so a tile's
+    results do not depend on the others."""
+    Q = as_tensor(Q, packed.centroids.device, torch.float32)
+    nq = Q.shape[0]
+    if nq == 0:
+        dev = Q.device
+        return (torch.zeros((0, final_k), dtype=torch.int32, device=dev),
+                torch.zeros((0, final_k), dtype=torch.float32, device=dev))
+    outs = [_search_block(packed, Q[i0:i0 + bq], top_t, final_k,
+                          rerank_budget, multiplicity)
+            for i0 in range(0, nq, bq)]
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))

@@ -1,0 +1,101 @@
+"""Fused Lloyd sweep: CUDA kernel, its wrapper, and the batched sweep.
+
+`lloyd_sweep` replaces `repro/kernels/lloyd.py::lloyd_sweep_pallas`.
+Source: `csrc/lloyd.cu` (assignment through the tile loop of
+`csrc/assign.cuh`).
+
+Bound on the H100: operations. The assignment's 2·n·c·d f32 FLOPs dwarf
+the n·d adds of the accumulation and the (n + 2c)·d·4 bytes moved. The TPU
+kernel keeps the whole codebook in VMEM and accumulates across a sequential
+grid; Hopper runs blocks in parallel with far less shared memory, so the
+sweep is three launches: the vq tile loop (no (n × c) matrix in device
+memory), a per-centroid pass that compacts its rows in row order and sums
+them in that order, and a fixed-order sum of the distortion. No float
+atomics: the sweep returns the same bits on every run.
+
+`lloyd_sweep_batched` is plain torch: JAX runs it as a scan outside Pallas
+on every backend (`repro/kernels/lloyd.py::lloyd_sweep_batched`).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import lloyd_sweep_ref
+
+# below this feature dim the x·cᵀ contraction runs as an unrolled
+# multiply-add chain, as in the JAX package (repro/kernels/lloyd.py SMALL_D)
+SMALL_D = 8
+
+
+def lloyd_sweep(X: torch.Tensor, C: torch.Tensor):
+    """One Lloyd iteration → (new_C (c, d), counts (c,) f32, mean distortion).
+
+    Empty clusters keep their old centroid. CPU tensors take the plain
+    version; CUDA tensors launch the kernel.
+    """
+    if _build.on_cpu(X, C):
+        return lloyd_sweep_ref(X, C)
+    _build.require_cuda(X, C)
+    return _launch(X, C)
+
+
+def _launch(X: torch.Tensor, C: torch.Tensor):
+    _build.check(X, "X", torch.float32, 2)
+    _build.check(C, "C", torch.float32, 2)
+    n, d = X.shape
+    c = C.shape[0]
+    if C.shape[1] != d or n == 0 or c == 0 or d == 0 or d > 1024:
+        raise ValueError(f"unsupported shapes: X {tuple(X.shape)}, "
+                         f"C {tuple(C.shape)} (need n, c >= 1, 1 <= d <= 1024)")
+    dev = X.device
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    mind = torch.empty(n, dtype=torch.float32, device=dev)
+    part_loss = torch.empty(c, dtype=torch.float32, device=dev)
+    new_C = torch.empty_like(C)
+    counts = torch.empty(c, dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    _build.launch("lloyd_sweep_launch", X, C, n, c, d, idx, mind, part_loss,
+                  new_C, counts, loss)
+    lloyd_sweep.launches += 1
+    return new_C, counts, loss
+
+
+lloyd_sweep.launches = 0
+
+
+def batched_inner(xb: torch.Tensor, Cb: torch.Tensor) -> torch.Tensor:
+    """(m, b, s) · (m, k, s)ᵀ → (m, b, k); small s as an unrolled chain."""
+    s = Cb.shape[-1]
+    if s > SMALL_D:
+        return torch.bmm(xb, Cb.transpose(1, 2))
+    acc = xb[..., 0:1] * Cb[:, None, :, 0]
+    for j in range(1, s):
+        acc = acc + xb[..., j:j + 1] * Cb[:, None, :, j]
+    return acc
+
+
+def lloyd_sweep_batched(Xb: torch.Tensor, Cb: torch.Tensor, chunk: int = 16384):
+    """`lloyd_sweep` over a leading batch of m independent problems.
+
+    Xb (m, n, s), Cb (m, k, s) → (new_C (m, k, s), counts (m, k), mean
+    distortion (m,)). Per-centroid sums accumulate as a one-hot batched
+    product per chunk: exact 0/1 weights and no atomics, so the result is
+    the same on every run on every device.
+    """
+    m, n, _ = Xb.shape
+    k = Cb.shape[1]
+    cn = (Cb * Cb).sum(-1)[:, None, :]                       # (m, 1, k)
+    sums = torch.zeros_like(Cb)
+    counts = torch.zeros((m, k), dtype=Xb.dtype, device=Xb.device)
+    loss = torch.zeros(m, dtype=Xb.dtype, device=Xb.device)
+    for i0 in range(0, n, chunk):
+        xb = Xb[:, i0:i0 + chunk]
+        mv, idx = (cn - 2.0 * batched_inner(xb, Cb)).min(-1)        # (m, b)
+        loss = loss + (mv + (xb * xb).sum(-1)).sum(-1)
+        onehot = torch.nn.functional.one_hot(idx, k).to(Xb.dtype)  # (m, b, k)
+        sums = sums + torch.bmm(onehot.transpose(1, 2), xb)
+        counts = counts + onehot.sum(1)
+    new_C = torch.where(counts[..., None] > 0,
+                        sums / counts.clamp(min=1.0)[..., None], Cb)
+    return new_C, counts, loss / n

@@ -1,0 +1,92 @@
+"""Plain PyTorch versions of every CUDA kernel of the port.
+
+Counterparts of `repro/kernels/ref.py` plus the Lloyd sweep: each computes
+the same function as its kernel, in tensor ops, on any device. The kernel
+wrappers take these for CPU tensors; the tests hold them against the JAX
+package, and `chip_smoke.py` holds the kernels against them on the card.
+Rows are processed in chunks so that no intermediate outgrows
+(chunk x c) or (rows x cand x m) elements.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.utils import pairwise_neg_sqdist_argmin
+
+_ROW_CHUNK = 16_384
+_GATHER_ELEMS = 1 << 25
+
+
+def pq_score_window_ref(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """luts (nq, m, 16) f32, codes (nq, cand, m) int → scores (nq, cand).
+
+    score[q, i] = Σ_m luts[q, m, codes[q, i, m]], as a flat per-query LUT
+    gather (`repro/core/search.py::window_pq_scores`, non-TPU branch).
+    """
+    nq, cand, m = codes.shape
+    k = luts.shape[-1]
+    lutflat = luts.reshape(nq, m * k)
+    offs = torch.arange(m, device=codes.device, dtype=torch.int64) * k
+    out = torch.empty((nq, cand), dtype=luts.dtype, device=luts.device)
+    step = max(1, _GATHER_ELEMS // max(1, cand * m))
+    for q0 in range(0, nq, step):
+        idx = codes[q0:q0 + step].to(torch.int64) + offs
+        g = torch.gather(lutflat[q0:q0 + step], 1,
+                         idx.reshape(idx.shape[0], cand * m))
+        out[q0:q0 + step] = g.reshape(-1, cand, m).sum(-1)
+    return out
+
+
+def vq_assign_ref(X: torch.Tensor, C: torch.Tensor):
+    """Nearest centroid by squared L2 → (idx (n,) int32, sqdist (n,)).
+
+    argmin_j ||c_j||² − 2⟨x, c_j⟩ (first index on ties); the returned
+    distance adds ||x||² back, as `vq_assign_pallas` does.
+    """
+    return pairwise_neg_sqdist_argmin(X, C, chunk=_ROW_CHUNK)
+
+
+def soar_assign_ref(X: torch.Tensor, rhat: torch.Tensor, primary: torch.Tensor,
+                    C: torch.Tensor, lam: float):
+    """SOAR spilled assignment (Theorem 3.1 loss), primary excluded.
+
+    loss_ij = ||c_j||² − 2⟨x_i,c_j⟩ + lam·(⟨r̂_i,x_i⟩ − ⟨r̂_i,c_j⟩)²
+    Returns (idx (n,) int32, loss at idx (n,) incl. the ||x||² term).
+    """
+    cn = (C * C).sum(-1)
+    idx = torch.empty(X.shape[0], dtype=torch.int32, device=X.device)
+    val = torch.empty(X.shape[0], dtype=X.dtype, device=X.device)
+    for i0 in range(0, X.shape[0], _ROW_CHUNK):
+        xb, rb = X[i0:i0 + _ROW_CHUNK], rhat[i0:i0 + _ROW_CHUNK]
+        pb = primary[i0:i0 + _ROW_CHUNK].to(torch.int64)
+        rx = (rb * xb).sum(-1)
+        loss = cn[None, :] - 2.0 * (xb @ C.T) + lam * (rx[:, None] - rb @ C.T) ** 2
+        loss.scatter_(1, pb[:, None], float("inf"))
+        v, j = loss.min(-1)
+        idx[i0:i0 + xb.shape[0]] = j.to(torch.int32)
+        val[i0:i0 + xb.shape[0]] = v + (xb * xb).sum(-1)
+    return idx, val
+
+
+def lloyd_sweep_ref(X: torch.Tensor, C: torch.Tensor, chunk: int = 8192):
+    """One Lloyd iteration → (new_C (c, d), counts (c,) f32, mean distortion).
+
+    Mirrors `repro/kernels/lloyd.py::lloyd_sweep`: per row-chunk argmin of
+    ||c||² − 2⟨x,c⟩, per-centroid sums/counts accumulated chunk by chunk.
+    Empty clusters keep their old centroid.
+    """
+    n = X.shape[0]
+    c = C.shape[0]
+    sums = torch.zeros_like(C)
+    counts = torch.zeros(c, dtype=X.dtype, device=X.device)
+    loss = torch.zeros((), dtype=X.dtype, device=X.device)
+    for i0 in range(0, n, chunk):
+        xb = X[i0:i0 + chunk]
+        idx, mind = vq_assign_ref(xb, C)
+        idx = idx.to(torch.int64)
+        sums.index_add_(0, idx, xb)
+        counts.index_add_(0, idx, torch.ones_like(mind))
+        loss = loss + mind.sum()
+    new_C = torch.where(counts[:, None] > 0,
+                        sums / counts.clamp(min=1.0)[:, None], C)
+    return new_C, counts, loss / n

@@ -1,0 +1,178 @@
+"""The port's kernels (repro_torch.kernels) against the JAX package's Pallas
+kernels in interpret mode, on the same numpy inputs.
+
+On the CPU each wrapper takes its kernel's plain PyTorch version, so these
+tests hold that version against the Pallas kernel body; the CUDA kernels
+are held against the plain versions in tests/test_torch_cuda.py.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.soar import naive_spill_assign as jax_naive_spill  # noqa: E402
+from repro.kernels import ops  # noqa: E402
+from repro.kernels.lloyd import lloyd_sweep_pallas  # noqa: E402
+from repro.kernels.soar_assign import assign_fused as jax_assign_fused  # noqa: E402
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.lloyd import lloyd_sweep  # noqa: E402
+from repro_torch.kernels.pq_score import pq_score_window  # noqa: E402
+from repro_torch.kernels.soar_assign import assign_fused, soar_assign  # noqa: E402
+from repro_torch.kernels.vq_assign import vq_assign  # noqa: E402
+
+
+def _normal(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _t(a, device="cpu"):
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _unit_residuals(X, C, prim):
+    r = X - C[prim]
+    return (r / np.maximum(np.linalg.norm(r, axis=-1, keepdims=True),
+                           1e-12)).astype(np.float32)
+
+
+# ------------------------------------------------- kernel 2: PQ window score
+WINDOW_SHAPES = [(1, 7, 8), (8, 512, 16), (9, 1000, 50), (3, 37, 5)]
+
+
+@pytest.mark.parametrize("nq,cand,m", WINDOW_SHAPES)
+def test_pq_score_window_matches_pallas(nq, cand, m):
+    luts = _normal(0, nq, m, 16)
+    codes = np.random.default_rng(1).integers(0, 16, (nq, cand, m)).astype(np.uint8)
+    want = np.asarray(ops.pq_score_window(jnp.asarray(luts),
+                                          jnp.asarray(codes.astype(np.int32))))
+    got = pq_score_window(_t(luts), _t(codes)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------ kernels 3, 4: assignment
+ASSIGN_SHAPES = [(100, 16, 32), (513, 100, 64), (64, 2000, 100), (1000, 777, 20)]
+
+
+def _agree(a, b):
+    return float((np.asarray(a) == np.asarray(b)).mean())
+
+
+@pytest.mark.parametrize("n,c,d", ASSIGN_SHAPES)
+def test_vq_assign_matches_pallas(n, c, d):
+    X, C = _normal(10, n, d), _normal(11, c, d)
+    widx, wval = ops.vq_assign(jnp.asarray(X), jnp.asarray(C))
+    gidx, gval = vq_assign(_t(X), _t(C))
+    # f32 summation order can flip near-ties; chosen distances never differ
+    assert _agree(gidx.numpy(), widx) >= 0.999
+    np.testing.assert_allclose(gval.numpy(), np.asarray(wval), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,c,d,lam", [(200, 64, 32, 1.0), (513, 256, 64, 1.5),
+                                       (100, 1000, 100, 0.5), (77, 3, 5, 2.0)])
+def test_soar_assign_matches_pallas(n, c, d, lam):
+    X, C = _normal(20, n, d), _normal(21, c, d)
+    prim = np.asarray(ops.vq_assign(jnp.asarray(X), jnp.asarray(C))[0])
+    rhat = _unit_residuals(X, C, prim)
+    widx, wval = ops.soar_assign(jnp.asarray(X), jnp.asarray(rhat),
+                                 jnp.asarray(prim), jnp.asarray(C), lam=lam)
+    gidx, gval = soar_assign(_t(X), _t(rhat), _t(prim.astype(np.int32)), _t(C), lam)
+    assert _agree(gidx.numpy(), widx) >= 0.999
+    np.testing.assert_allclose(gval.numpy(), np.asarray(wval), rtol=1e-4, atol=1e-4)
+    assert not np.any(gidx.numpy() == prim)
+
+
+@pytest.mark.parametrize("n,c,d", [(128, 64, 16), (300, 130, 48)])
+def test_soar_assign_lam0_is_naive_spill(n, c, d):
+    X, C = _normal(22, n, d), _normal(23, c, d)
+    prim, _ = vq_assign(_t(X), _t(C))
+    rhat = _unit_residuals(X, C, prim.numpy())
+    gidx, _ = soar_assign(_t(X), _t(rhat), prim, _t(C), lam=0.0)
+    want = jax_naive_spill(jnp.asarray(X), jnp.asarray(C), jnp.asarray(prim.numpy()))
+    assert _agree(gidx.numpy(), want) >= 0.999
+
+
+@pytest.mark.parametrize("n_spills,lam", [(0, 0.0), (1, 0.0), (1, 1.0)])
+def test_assign_fused_matches_jax(n_spills, lam):
+    X, C = _normal(30, 700, 48), _normal(31, 130, 48)
+    want = np.asarray(jax_assign_fused(jnp.asarray(X), jnp.asarray(C), lam=lam,
+                                       n_spills=n_spills, chunk=256))
+    got = assign_fused(_t(X), _t(C), lam=lam, n_spills=n_spills).numpy()
+    assert got.shape == want.shape == (700, 1 + n_spills)
+    for j in range(1 + n_spills):
+        assert _agree(got[:, j], want[:, j]) >= 0.999
+
+
+def test_assign_fused_multi_spill_is_later_work():
+    with pytest.raises(NotImplementedError, match="multi-spill"):
+        assign_fused(_t(_normal(0, 8, 4)), _t(_normal(1, 5, 4)), n_spills=2)
+
+
+# ------------------------------------------------------- kernel 5: Lloyd
+@pytest.mark.parametrize("n,c,d", [(1000, 16, 8), (3000, 64, 32), (2049, 100, 20)])
+def test_lloyd_sweep_matches_pallas(n, c, d):
+    X = _normal(40, n, d)
+    C = X[np.random.default_rng(41).choice(n, c, replace=False)] + 0.01
+    wC, wcnt, wdist = lloyd_sweep_pallas(jnp.asarray(X), jnp.asarray(C), c,
+                                         interpret=True)
+    gC, gcnt, gdist = lloyd_sweep(_t(X), _t(C))
+    np.testing.assert_array_equal(gcnt.numpy(), np.asarray(wcnt))
+    np.testing.assert_allclose(gC.numpy(), np.asarray(wC), rtol=1e-5, atol=1e-6)
+    assert abs(float(gdist) - float(wdist)) <= 1e-5 * abs(float(wdist))
+
+
+def test_lloyd_sweep_keeps_empty_centroid():
+    X = _normal(42, 200, 6)
+    C = np.concatenate([X[:4], np.full((1, 6), 50.0, np.float32)])
+    wC, wcnt, _ = lloyd_sweep_pallas(jnp.asarray(X), jnp.asarray(C), 5,
+                                     interpret=True)
+    gC, gcnt, _ = lloyd_sweep(_t(X), _t(C))
+    assert float(gcnt[4]) == float(wcnt[4]) == 0.0
+    np.testing.assert_array_equal(gC.numpy()[4], C[4])
+
+
+# ------------------------------------------------------------ the wrappers
+def test_cpu_path_launches_nothing():
+    before = (pq_score_window.launches, vq_assign.launches,
+              soar_assign.launches, lloyd_sweep.launches)
+    X, C = _t(_normal(50, 40, 8)), _t(_normal(51, 6, 8))
+    assign_fused(X, C, lam=1.0, n_spills=1)
+    lloyd_sweep(X, C)
+    pq_score_window(_t(_normal(52, 2, 3, 16)), torch.zeros((2, 5, 3), dtype=torch.uint8))
+    assert (pq_score_window.launches, vq_assign.launches,
+            soar_assign.launches, lloyd_sweep.launches) == before
+
+
+@pytest.mark.parametrize("which", ["pq", "vq", "soar", "lloyd"])
+def test_non_cpu_tensor_never_falls_back(which):
+    """A tensor that is not on the CPU must launch the kernel or raise;
+    a meta tensor can do neither, so the wrapper must raise."""
+    X = torch.empty((8, 4), device="meta")
+    C = torch.empty((3, 4), device="meta")
+    calls = {
+        "pq": lambda: pq_score_window(torch.empty((1, 2, 16), device="meta"),
+                                      torch.empty((1, 5, 2), dtype=torch.uint8,
+                                                  device="meta")),
+        "vq": lambda: vq_assign(X, C),
+        "soar": lambda: soar_assign(X, X, torch.empty(8, dtype=torch.int32,
+                                                      device="meta"), C),
+        "lloyd": lambda: lloyd_sweep(X, C),
+    }
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        calls[which]()
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+
+
+def test_library_name_follows_sources():
+    p = _build.library_path()
+    assert p.parent == _build.BUILD_DIR and p.name.startswith("libreprotorch_")
+    assert {f.name for f in _build.CSRC.glob("*.cu")} == {
+        "pq_score_window.cu", "vq_assign.cu", "soar_assign.cu", "lloyd.cu"}
