@@ -3,24 +3,39 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases (any failure exits nonzero; nothing is caught):
+Phases (any failure exits nonzero; nothing is caught). Each path below is
+driven with every kernel's launch counter set to 0 just before and read
+just after, and fails if one of its kernels was never launched:
   1. device: nvidia-smi's name and power limit, torch's device name;
   2. build: nvcc builds the CUDA kernels from src/repro_torch/csrc;
   3. main path at GloVe-100-angular's shape (ann-benchmarks
      glove-100-angular: 1,183,514 x 100, 10k queries; here n=1,000,000,
      d=100, nq=10,000 from make_manifold(seed)) with ScaNN's published
      ann-benchmarks config for that set (num_leaves=2000, dims_per_block=2,
-     so 50 PQ subspaces): build_ivf_sharded (SOAR lam=1, f32 rerank) ->
-     pack_ivf -> search_jit_batched (top_t=40, final_k=10,
-     rerank_budget=256, bq=128). Kernel launch counters are zeroed just
-     before and read just after. Checks recall@10 >= 0.85 against exact
-     search, every kernel launched, and ids agreeing on >= 99% of slots
-     with the same search through the plain window scorer;
-  4. each kernel against its plain PyTorch version on the main path's own
+     so 50 PQ subspaces): build_ivf_sharded (SOAR lam=1, f32 rerank, and a
+     tree router at the JAX package's defaults: 45 supers, t_route 6) ->
+     pack_ivf -> search_jit_batched through the flat router (top_t=40,
+     final_k=10, rerank_budget=256, bq=128), cold then warm. Checks
+     recall@10 >= 0.85 against exact search and ids agreeing on >= 99% of
+     slots with the same search through the plain window scorer
+     (kernels: Lloyd, vq_assign, soar_assign, pq_score_window);
+  4. tree-routed search of the same queries through the index's tree
+     router, warm: recall@10 >= 0.85, one tree_route launch per tile, ids
+     agreeing on >= 99% of slots with the same search through the plain
+     route (kernels: tree_route, pq_score_window);
+  5. filtered tree-routed search with seeded bitmaps keeping 1% and 0.1%
+     of the points, each with and without the escalated second pass:
+     every returned id passes the filter, and recall@10 against exact
+     filtered search is no lower with escalation;
+  6. dense PQ scan of 128 queries over every code row of the index through
+     kernels.ops.pq_score, plus the coarse term, best row per point, top-10
+     (kernel: pq_score): ids agree on >= 99% of slots with the same scan
+     through the plain scorer;
+  7. each kernel against its plain PyTorch version on the paths' own
      inputs, with its time (CUDA events), the plain version's time and the
      least time the card could take (larger of bytes / 3.35 TB/s and
      operations / 67 TFLOP/s f32, the H100 SXM's published peaks);
-  5. the {"kernels": [...]} line, then the device line, last.
+  8. the {"kernels": [...]} line, then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package (src/repro).
 """
@@ -43,7 +58,10 @@ N, D, NQ = 1_000_000, 100, 10_000
 C, M = 2000, 50
 TOP_T, FINAL_K, BUDGET, BQ = 40, 10, 256, 128
 TRAIN_SAMPLE, SHARD = 131_072, 65_536
+SELECTIVITIES = (0.01, 0.001)      # filtered phase: shares of points kept
+DENSE_ROWS = 1_000_000             # code rows of the dense kernel check
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+DEVICE = "cuda"
 
 
 def sync():
@@ -70,16 +88,45 @@ def bound(nbytes: float, ops: float):
 
 
 @contextmanager
-def plain_window_scorer():
-    """Run the search with the window kernel's plain version in its place."""
-    from repro_torch.core import search
-    from repro_torch.kernels.ref import pq_score_window_ref
-    saved = search.window_pq_scores
-    search.window_pq_scores = pq_score_window_ref
+def plain_version(module, name: str, plain):
+    """Run with `module.name` (a kernel's wrapper) replaced by its plain
+    version."""
+    saved = getattr(module, name)
+    setattr(module, name, plain)
     try:
         yield
     finally:
-        search.window_pq_scores = saved
+        setattr(module, name, saved)
+
+
+def drive(wrappers: dict, needs, fn):
+    """Run one path with every launch counter at 0 → (fn's result, the
+    counts after it); fails if a kernel in `needs` was never launched."""
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    sync()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    assert all(counts[k] > 0 for k in needs), f"a kernel never ran: {counts}"
+    return out, counts
+
+
+def timed(fn):
+    """(fn(), host seconds to the end of its device work)."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def dense_scan(pq_score, luts, Qb, idx, part, k):
+    """Brute-force ADC over every code row: PQ score + ⟨q, c⟩ of the row's
+    partition, best row per point, top-k points → ids (nq, k)."""
+    s = pq_score(luts, idx.codes) + (Qb @ idx.centroids.T)[:, part]
+    best = torch.full((Qb.shape[0], idx.n_points), float("-inf"), device=s.device)
+    best.scatter_reduce_(1, idx.point_ids.long().expand(Qb.shape[0], -1), s, "amax")
+    return torch.topk(best, k, dim=1).indices
 
 
 def main() -> int:
@@ -91,20 +138,23 @@ def main() -> int:
         return 1
 
     from repro_torch.core import (build_ivf_sharded, pack_ivf, recall_at_k,
-                                  search_jit_batched, true_neighbors)
+                                  router as router_mod, search, search_jit_batched,
+                                  true_neighbors)
     from repro_torch.core.router import FlatRouter
     from repro_torch.data.vectors import make_manifold
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.lloyd import lloyd_sweep
-    from repro_torch.kernels.pq_score import pq_score_window
+    from repro_torch.kernels.pq_score import pq_score, pq_score_window
     from repro_torch.kernels.soar_assign import soar_assign
+    from repro_torch.kernels.tree_route import tree_route
     from repro_torch.kernels.vq_assign import vq_assign
     from repro_torch.quant.pq import pq_lut
-    from repro_torch.utils import set_f32_precision
+    from repro_torch.utils import set_f32_precision, topk_inner_product
 
     set_f32_precision()
     wrappers = {"pq_score_window": pq_score_window, "vq_assign": vq_assign,
-                "soar_assign": soar_assign, "lloyd_sweep": lloyd_sweep}
+                "soar_assign": soar_assign, "lloyd_sweep": lloyd_sweep,
+                "tree_route": tree_route, "pq_score": pq_score}
 
     # 1. device
     smi = subprocess.run(
@@ -121,55 +171,46 @@ def main() -> int:
     _build.library()
     print(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
 
-    # 3. main path
+    # 3. main path: build (tree router included), pack, flat search
     t0 = time.perf_counter()
-    ds = make_manifold(args.seed, N, D, nq=NQ, device="cuda")
+    ds = make_manifold(args.seed, N, D, nq=NQ, device=DEVICE)
     sync()
     print(f"data: {N} x {D}, {NQ} queries in {time.perf_counter() - t0:.2f} s")
+    search_kw = dict(top_t=TOP_T, final_k=FINAL_K, rerank_budget=BUDGET, bq=BQ)
 
-    for w in wrappers.values():
-        w.launches = 0
     torch.cuda.reset_peak_memory_stats()
     phases: dict = {}
-    t0 = time.perf_counter()
-    idx = build_ivf_sharded(torch.Generator().manual_seed(args.seed), ds.X, C,
-                            spill_mode="soar", lam=1.0, pq_subspaces=M,
-                            rerank="f32", train_sample=TRAIN_SAMPLE,
-                            shard_size=SHARD, timings=phases, device="cuda")
-    sync()
-    build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    packed = pack_ivf(idx)
-    sync()
-    pack_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    search_jit_batched(packed, ds.Q, top_t=TOP_T, final_k=FINAL_K,
-                       rerank_budget=BUDGET, bq=BQ)
-    sync()
-    first_search_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ids, _ = search_jit_batched(packed, ds.Q, top_t=TOP_T, final_k=FINAL_K,
-                                rerank_budget=BUDGET, bq=BQ)
-    sync()
-    search_s = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
-    peak_mem = torch.cuda.max_memory_allocated()
+    times: dict = {}
 
+    def main_path():
+        idx, times["build_s"] = timed(lambda: build_ivf_sharded(
+            torch.Generator().manual_seed(args.seed), ds.X, C, spill_mode="soar",
+            lam=1.0, pq_subspaces=M, rerank="f32", train_sample=TRAIN_SAMPLE,
+            shard_size=SHARD, timings=phases, device=DEVICE, router="tree"))
+        packed, times["pack_s"] = timed(lambda: pack_ivf(idx))
+        flat = FlatRouter(packed.centroids)
+        _, times["first_search_s"] = timed(
+            lambda: search_jit_batched(packed, ds.Q, router=flat, **search_kw))
+        (ids, _), times["search_s"] = timed(
+            lambda: search_jit_batched(packed, ds.Q, router=flat, **search_kw))
+        return idx, packed, flat, ids
+
+    (idx, packed, flat, ids), launches = drive(
+        wrappers, ("lloyd_sweep", "vq_assign", "soar_assign", "pq_score_window"),
+        main_path)
+    peak_mem = torch.cuda.max_memory_allocated()
+    rt = idx.router
     pmax = int(packed.part_ids.shape[1])
     sizes = idx.partition_sizes().float()
     gt = true_neighbors(ds.X, ds.Q, k=FINAL_K, chunk=65_536)
     recall = recall_at_k(ids, gt, FINAL_K)
-    with plain_window_scorer():
-        plain_ids, _ = search_jit_batched(packed, ds.Q, top_t=TOP_T,
-                                          final_k=FINAL_K, rerank_budget=BUDGET,
-                                          bq=BQ)
+    with plain_version(search, "window_pq_scores", ref.pq_score_window_ref):
+        plain_ids, _ = search_jit_batched(packed, ds.Q, router=flat, **search_kw)
     agree = float((plain_ids == ids).float().mean())
     summary = {
         "n": N, "d": D, "nq": NQ, "c": C, "m": M, "top_t": TOP_T,
-        "rerank_budget": BUDGET, "bq": BQ, "build_s": build_s,
-        "build_phases_s": phases, "pack_s": pack_s,
-        "first_search_s": first_search_s, "search_s": search_s,
-        "qps": NQ / search_s, "recall_at_10": recall,
+        "rerank_budget": BUDGET, "bq": BQ, **times, "build_phases_s": phases,
+        "qps": NQ / times["search_s"], "recall_at_10": recall,
         "ids_agree_plain_scorer": agree,
         "max_memory_allocated_bytes": peak_mem,
         "n_assignments": idx.n_assignments, "pmax": pmax,
@@ -178,26 +219,103 @@ def main() -> int:
     }
     print("main path: " + json.dumps(summary))
     assert recall >= 0.85, f"recall@10 {recall} < 0.85"
-    assert all(v > 0 for v in launches.values()), f"a kernel never ran: {launches}"
     assert agree >= 0.99, f"ids agree with the plain scorer on {agree} < 0.99"
 
-    # 4. each kernel against its plain version, on the main path's inputs
+    # 4. tree-routed search through the index's router, warm
+    tiles = -(-NQ // BQ)
+    search_jit_batched(packed, ds.Q, **search_kw)
+    (tids, tsearch_s), tlaunch = drive(
+        wrappers, ("tree_route", "pq_score_window"),
+        lambda: timed(lambda: search_jit_batched(packed, ds.Q, **search_kw)[0]))
+    trecall = recall_at_k(tids, gt, FINAL_K)
+    with plain_version(router_mod, "tree_route", ref.tree_route_ref):
+        tplain, _ = search_jit_batched(packed, ds.Q, **search_kw)
+    tagree = float((tplain == tids).float().mean())
+    tree_summary = {
+        "n_super": rt.n_super, "t_route": rt.eff_t_route, "cmax": rt.cmax,
+        "search_s": tsearch_s, "qps": NQ / tsearch_s, "recall_at_10": trecall,
+        "recall_ratio_to_flat": trecall / recall,
+        "probe_flops_ratio_to_flat": rt.probe_flops(TOP_T) / flat.probe_flops(TOP_T),
+        "ids_agree_plain_route": tagree, "launches": tlaunch,
+    }
+    print("tree search: " + json.dumps(tree_summary))
+    assert trecall >= 0.85, f"tree recall@10 {trecall} < 0.85"
+    assert tlaunch["tree_route"] == tiles, f"tree_route launches {tlaunch} != {tiles}"
+    assert tagree >= 0.99, f"tree ids agree with the plain route on {tagree} < 0.99"
+
+    # 5. filtered tree-routed search
+    perm = torch.randperm(N, generator=torch.Generator().manual_seed(args.seed))
+    fsummary = {}
+    for sel in SELECTIVITIES:
+        keep = perm[:int(N * sel)].sort().values.to(DEVICE)
+        bits = torch.zeros(N, dtype=torch.uint8, device=DEVICE)
+        bits[keep] = 1
+        _, fidx = topk_inner_product(ds.Q, ds.X[keep], FINAL_K, chunk=65_536)
+        fgt = keep[fidx.long()].to(torch.int32)
+        runs = {}
+        for esc in (True, False):
+            fids, flaunch = drive(wrappers, ("tree_route", "pq_score_window"),
+                                  lambda: search_jit_batched(packed, ds.Q, filter=bits,
+                                                             escalate=esc, **search_kw)[0])
+            got = fids[fids >= 0].long()
+            assert bool((bits[got] > 0).all()), "a filtered-out id was returned"
+            runs["escalated" if esc else "unescalated"] = {
+                "recall_at_10": recall_at_k(fids, fgt, FINAL_K),
+                "ids_returned_share": float((fids >= 0).float().mean()),
+                "launches": flaunch}
+        thin = sum(int((search._search_pass(packed, ds.Q[i0:i0 + BQ], rt, TOP_T,
+                                            FINAL_K, BUDGET, 2, bits)[2] < BUDGET).sum())
+                   for i0 in range(0, NQ, BQ))
+        fsummary[str(sel)] = {"kept": int(keep.numel()),
+                              "thin_first_pass_share": thin / NQ, **runs}
+        assert runs["escalated"]["recall_at_10"] >= runs["unescalated"]["recall_at_10"], \
+            f"escalation lowered filtered recall at selectivity {sel}"
+    print("filtered search: " + json.dumps(fsummary))
+
+    # 6. dense PQ scan of one tile of queries over every code row
+    Qb = ds.Q[:BQ]
+    luts = pq_lut(packed.pq, Qb)
+    part = torch.repeat_interleave(torch.arange(C, device=DEVICE), idx.partition_sizes())
+    dids, dlaunch = drive(wrappers, ("pq_score",),
+                          lambda: dense_scan(ops.pq_score, luts, Qb, idx, part, FINAL_K))
+    dplain = dense_scan(ref.pq_score_ref, luts, Qb, idx, part, FINAL_K)
+    dagree = float((dplain == dids).float().mean())
+    dsummary = {"queries": BQ, "rows": idx.n_assignments,
+                "recall_at_10": recall_at_k(dids, gt[:BQ], FINAL_K),
+                "ids_agree_plain_scorer": dagree, "launches": dlaunch}
+    print("dense scan: " + json.dumps(dsummary))
+    assert dagree >= 0.99, f"dense ids agree with the plain scorer on {dagree} < 0.99"
+    path_launches = {**{k: launches[k] for k in ("pq_score_window", "vq_assign",
+                                                   "soar_assign", "lloyd_sweep")},
+                     "tree_route": tlaunch["tree_route"], "pq_score": dlaunch["pq_score"]}
+
+    # 7. each kernel against its plain version, on the paths' inputs
     kernels = []
 
-    def record(name, source, replaces, err, ms, plain_ms, nbytes, ops, **extra):
-        b_ms, b_by = bound(nbytes, ops)
+    def record(name, source, replaces, err, ms, plain_ms, nbytes, ops_, **extra):
+        b_ms, b_by = bound(nbytes, ops_)
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": path_launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                         **extra})
         print(f"kernel {name}: err {err:.3g} ms {ms:.4f} plain {plain_ms:.4f} "
               f"bound {b_ms:.4f} ({b_by}) {extra}")
 
+    # kernel 1: one tile of LUTs against the first DENSE_ROWS code rows
+    codes = idx.codes[:DENSE_ROWS]
+    got, want = pq_score(luts, codes), ref.pq_score_ref(luts, codes)
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-5), "pq_score"
+    record("pq_score", "src/repro_torch/csrc/pq_score.cu",
+           "src/repro/kernels/pq_score.py:66", float((got - want).abs().max()),
+           time_ms(lambda: pq_score(luts, codes)),
+           time_ms(lambda: ref.pq_score_ref(luts, codes), 3),
+           codes.numel() + luts.numel() * 4 + got.numel() * 4,
+           got.numel() * M, shape=[BQ, codes.shape[0], M])
+    del got, want
+
     # kernel 2: one bq tile of the real window
-    Qb = ds.Q[:BQ]
-    luts = pq_lut(packed.pq, Qb).contiguous()
-    _, parts = FlatRouter(packed.centroids).route(Qb, TOP_T)
+    _, parts = flat.route(Qb, TOP_T)
     codes = packed.part_codes[parts].reshape(BQ, TOP_T * pmax, M).contiguous()
     got, want = pq_score_window(luts, codes), ref.pq_score_window_ref(luts, codes)
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-5), "pq_score_window"
@@ -208,7 +326,6 @@ def main() -> int:
            time_ms(lambda: ref.pq_score_window_ref(luts, codes), 3),
            codes.numel() + luts.numel() * 4 + got.numel() * 4,
            codes.numel(), shape=list(codes.shape))
-
     # kernels 3 and 4: one assignment shard against the trained codebook
     Xs, Cb = ds.X[:SHARD].contiguous(), idx.centroids.contiguous()
     n, c, d = Xs.shape[0], Cb.shape[0], Xs.shape[1]
@@ -260,7 +377,28 @@ def main() -> int:
            counts_equal_share=float(same.float().mean()),
            count_moves=moved, distortion_rel_err=rel, shape=[n, c, d])
 
-    # 5. result lines
+    # kernel 6: the trained router's tables; ids checked on every query,
+    # timed on one bq tile
+    tr = rt.eff_t_route
+    tables = (rt.super_centroids, rt.child_centroids, rt.children)
+    gs, gi = tree_route(ds.Q, *tables, tr)
+    ws, wi = ref.tree_route_ref(ds.Q, *tables, tr)
+    rows = (gi == wi).all(dim=1)
+    row_agree = float(rows.float().mean())
+    assert row_agree >= 0.999, f"tree_route id rows agree on {row_agree} < 0.999"
+    assert torch.equal(torch.isinf(gs[rows]), torch.isinf(ws[rows])), "tree_route masks"
+    fin = torch.isfinite(ws[rows])
+    assert torch.allclose(gs[rows][fin], ws[rows][fin], rtol=1e-4, atol=1e-4), "tree_route"
+    S, cm = rt.n_super, rt.cmax
+    record("tree_route", "src/repro_torch/csrc/tree_route.cu",
+           "src/repro/kernels/tree_route.py:96", float((gs[rows][fin] - ws[rows][fin]).abs().max()),
+           time_ms(lambda: tree_route(Qb, *tables, tr)),
+           time_ms(lambda: ref.tree_route_ref(Qb, *tables, tr)),
+           (BQ * D + S * D + S * cm * D + S * cm) * 4 + BQ * tr * cm * 8,
+           2 * BQ * (S + tr * cm) * D, id_rows_equal_share=row_agree,
+           shape=[BQ, S, cm, D, tr])
+
+    # 8. result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

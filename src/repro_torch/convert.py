@@ -2,7 +2,8 @@
 
 `index_from_numpy` takes the fields of a JAX `repro.core.ivf.IVFIndex` as
 numpy arrays (and plain values) and returns the port's `IVFIndex`, so both
-packages can search the same bits.
+packages can search the same bits. A router travels under the names of the
+JAX package's snapshot codec (`repro/ckpt/index_store.py`).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.ivf import IVFIndex
+from repro_torch.core.router import FlatRouter, TreeRouter
 from repro_torch.quant.pq import PQCodebook
 from repro_torch.utils import Device, resolve_device
 
@@ -25,6 +27,10 @@ def index_from_numpy(fields: Mapping[str, object], device: Device = None) -> IVF
     Keys: centroids (c, d) f32, starts (c+1,) int, point_ids (na,) int,
     codes (na, m) uint8 or None, pq.centers (m, 16, s) f32 or None,
     rerank_f32 (n, d) f32, assignments (n, a) int, n_points, spill_mode, lam.
+    Optional: router ({"type": "tree", "t_route", "n_partitions"} with
+    router.super_centroids (S, d), router.children (S, cmax),
+    router.child_centroids (S, cmax, d); or {"type": "flat"} with
+    router.centroids (c, d)).
     """
     missing = [k for k in FIELDS if k not in fields]
     if missing:
@@ -38,6 +44,19 @@ def index_from_numpy(fields: Mapping[str, object], device: Device = None) -> IVF
         return torch.from_numpy(np.array(a)).to(device=dev, dtype=dtype)
 
     centers = t("pq.centers", torch.float32)
+    meta = fields.get("router")
+    if meta is None:
+        router = None
+    elif meta["type"] == "flat":
+        router = FlatRouter(t("router.centroids", torch.float32))
+    elif meta["type"] == "tree":
+        router = TreeRouter(t("router.super_centroids", torch.float32),
+                            t("router.children", torch.int32),
+                            t("router.child_centroids", torch.float32),
+                            t_route=int(meta["t_route"]),
+                            n_partitions=int(meta["n_partitions"]))
+    else:
+        raise ValueError(f"unknown router type {meta['type']!r}")
     return IVFIndex(
         centroids=t("centroids", torch.float32),
         starts=t("starts", torch.int64),
@@ -48,4 +67,5 @@ def index_from_numpy(fields: Mapping[str, object], device: Device = None) -> IVF
         assignments=t("assignments", torch.int32),
         n_points=int(fields["n_points"]),
         spill_mode=str(fields["spill_mode"]),
-        lam=float(fields["lam"]))
+        lam=float(fields["lam"]),
+        router=router)

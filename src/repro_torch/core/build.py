@@ -8,8 +8,9 @@
 3. CSR, residual PQ and rerank assembly go through `finalize_ivf`.
 
 `codebook=` / `pq=` freeze those stages (the rebuild contract the JAX
-package's mutation-equivalence tests pin). The router and anisotropic VQ
-options of the JAX package are not ported yet.
+package's mutation-equivalence tests pin). `router=` trains (or carries) a
+probe router over the codebook. The anisotropic VQ option of the JAX
+package is not ported yet.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.core.ivf import IVFIndex, _phase, finalize_ivf
 from repro_torch.core.kmeans import train_kmeans
+from repro_torch.core.router import as_router
 from repro_torch.kernels.soar_assign import assign_fused
 from repro_torch.quant.pq import PQCodebook
 from repro_torch.utils import Device, as_tensor, resolve_device
@@ -78,15 +80,21 @@ def build_ivf_sharded(gen: Optional[torch.Generator], X, n_partitions: int, *,
                       shard_size: int = DEFAULT_SHARD,
                       codebook=None, pq: Optional[PQCodebook] = None,
                       timings: Optional[dict] = None,
-                      device: Device = None) -> IVFIndex:
+                      device: Device = None, router=None,
+                      router_kw: Optional[dict] = None) -> IVFIndex:
     """Build a SOAR-spilled IVF(-PQ) index of X (numpy array or tensor).
 
     gen: the build's random stream (None → seed 0); the k-means and PQ
     stages draw from two generators seeded from it. `codebook=` (and
     optionally `pq=`) skip training and build against the given frozen
-    stages. timings, when given, collects per-phase wall seconds (kmeans,
-    spill_assign, csr, pq_train, encode). Runs on `device` (CUDA unless the
-    caller passes "cpu").
+    stages. `router` is None (flat probe, nothing stored), "flat", "tree"
+    (`train_tree_router(**router_kw)` over the codebook) or a router
+    instance, which is kept as it is (frozen); the tree's generator is
+    derived from the k-means seed without a further draw from `gen`, so
+    every other array of the index is the same as with router=None.
+    timings, when given, collects per-phase wall seconds (kmeans,
+    spill_assign, router, csr, pq_train, encode). Runs on `device` (CUDA
+    unless the caller passes "cpu").
     """
     dev = resolve_device(device)
     if gen is None:
@@ -104,8 +112,13 @@ def build_ivf_sharded(gen: Optional[torch.Generator], X, n_partitions: int, *,
     with _phase(timings, "spill_assign", dev):
         assignments = assign_shards(X, C, spill_mode=spill_mode, lam=lam,
                                     n_spills=n_spills, shard_size=shard_size)
+    with _phase(timings, "router", dev):
+        grt = torch.Generator().manual_seed(seeds[0] ^ 0x52F7)
+        rt = as_router(router, C, gen=grt, **(router_kw or {}))
+        if rt is not None:
+            rt = rt.to(dev)
     if pq is not None:
         pq = PQCodebook(as_tensor(pq.centers, dev, torch.float32))
     return finalize_ivf(gpq, X, C, assignments, pq_subspaces=pq_subspaces,
                         rerank=rerank, spill_mode=spill_mode, lam=lam, pq=pq,
-                        timings=timings)
+                        timings=timings, router=rt)

@@ -34,6 +34,7 @@ class IVFIndex:
     n_points: int
     spill_mode: str                    # "none" | "naive" | "soar"
     lam: float
+    router: Optional[object] = None    # probe router (core/router.py); None → flat
 
     @property
     def n_assignments(self) -> int:
@@ -81,13 +82,14 @@ def finalize_ivf(gen: torch.Generator, X: torch.Tensor, C: torch.Tensor,
                  assignments: torch.Tensor, *, pq_subspaces: int = 0,
                  rerank: str = "f32", spill_mode: str = "soar", lam: float = 1.0,
                  pq: Optional[PQCodebook] = None,
-                 timings: Optional[dict] = None) -> IVFIndex:
+                 timings: Optional[dict] = None, router=None) -> IVFIndex:
     """CSR + residual PQ + rerank assembly.
 
     Residuals to the centroid of each assignment are gathered, subtracted
     and encoded on the device, ENCODE_CHUNK assignments at a time (the
     fused route of the JAX package). With `pq` given the codebook is frozen
     and only encoding runs; otherwise it trains on a sample of residuals.
+    `router` is stored on the index as it is.
     """
     if rerank != "f32":
         raise NotImplementedError(f"rerank={rerank!r}: only 'f32' is ported")
@@ -118,4 +120,5 @@ def finalize_ivf(gen: torch.Generator, X: torch.Tensor, C: torch.Tensor,
                     pq.centers, res.reshape(-1, m, s))
     return IVFIndex(centroids=C, starts=starts, point_ids=point_ids, codes=codes,
                     pq=pq, rerank_f32=X, assignments=assignments,
-                    n_points=int(X.shape[0]), spill_mode=spill_mode, lam=lam)
+                    n_points=int(X.shape[0]), spill_mode=spill_mode, lam=lam,
+                    router=router)

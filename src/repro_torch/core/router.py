@@ -1,12 +1,32 @@
-"""Partition-probe routing (PyTorch port of the flat half of
-`repro/core/router.py`; the two-level `TreeRouter` is not ported yet).
+"""Partition-probe routing (PyTorch port of `repro/core/router.py`).
 
-The route contract: `route(Q, top_t) -> (scores (nq, t), parts (nq, t))`,
-partitions ordered by descending score.
+- `FlatRouter`: the exact flat probe, one Q·Cᵀ product + top-t.
+- `TreeRouter`: a two-level router, k-means over the centroids: score
+  `t_route` super-clusters, then take the top-t among only their children
+  (the `tree_route` CUDA kernel on the card), O(S·d + t_route·cmax·d) per
+  query instead of O(c·d).
+
+The route contract: `route(Q, top_t) -> (scores (nq, t'), parts (nq, t'))`,
+partitions ordered by descending score and t' = min(top_t, reachable). A
+starved slot (a tree router with fewer reachable children than top_t)
+carries score -inf and partition 0; downstream the PQ path adds the -inf
+coarse score, so its candidates never surface.
+
+Each router also owns the clamp (`clamp`) and one step of the filtered
+search's escalation (`escalated`): flat doubles top_t; tree doubles both
+top_t and t_route, so escalation widens the reachable set, not only the
+cut within it.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+
+from repro_torch.core.kmeans import train_kmeans
+from repro_torch.kernels.tree_route import tree_route
+from repro_torch.utils import pairwise_neg_sqdist_argmin, topk_first
 
 
 def clamp_top_t(top_t: int, n_partitions: int) -> int:
@@ -33,9 +53,172 @@ class FlatRouter:
     def n_partitions(self) -> int:
         return int(self.centroids.shape[0])
 
+    @property
+    def d(self) -> int:
+        return int(self.centroids.shape[1])
+
     def clamp(self, top_t: int) -> int:
         return clamp_top_t(top_t, self.n_partitions)
+
+    def can_escalate(self, top_t: int) -> bool:
+        return top_t < self.n_partitions
+
+    def escalated(self, top_t: int):
+        """One escalation step: doubled top_t, same router."""
+        return self, self.clamp(2 * top_t)
+
+    def probe_flops(self, top_t: int) -> int:
+        """Per-query probe-stage multiply count."""
+        return self.n_partitions * self.d
+
+    def to(self, device) -> "FlatRouter":
+        return FlatRouter(self.centroids.to(device))
 
     def route(self, Q: torch.Tensor, top_t: int):
         """(nq, d) → (scores (nq, t), parts (nq, t)), score-descending."""
         return torch.topk(Q @ self.centroids.T, top_t, dim=-1)
+
+
+class TreeRouter:
+    """Two-level centroid router.
+
+    super_centroids: (S, d) f32, the second-level codebook;
+    children:        (S, cmax) int32 partition ids per super, -1 padded;
+    child_centroids: (S, cmax, d) f32, centroid rows grouped by super
+                     (zeros at padding, masked by children >= 0);
+    t_route:         supers probed per query;
+    n_partitions:    the partition count c, for the clamp and escalation.
+
+    At t_route = S every child is scored and routing gives the flat probe
+    set.
+    """
+
+    def __init__(self, super_centroids: torch.Tensor, children: torch.Tensor,
+                 child_centroids: torch.Tensor, t_route: int, n_partitions: int):
+        self.super_centroids = super_centroids
+        self.children = children
+        self.child_centroids = child_centroids
+        self.t_route = int(t_route)
+        self.n_partitions = int(n_partitions)
+
+    @property
+    def n_super(self) -> int:
+        return int(self.super_centroids.shape[0])
+
+    @property
+    def cmax(self) -> int:
+        return int(self.children.shape[1])
+
+    @property
+    def d(self) -> int:
+        return int(self.super_centroids.shape[1])
+
+    @property
+    def eff_t_route(self) -> int:
+        return max(1, min(self.t_route, self.n_super))
+
+    def clamp(self, top_t: int) -> int:
+        return clamp_top_t(top_t, self.n_partitions)
+
+    def can_escalate(self, top_t: int) -> bool:
+        # escalation widens the cut (top_t) or the reachable set (t_route)
+        return top_t < self.n_partitions or self.eff_t_route < self.n_super
+
+    def escalated(self, top_t: int):
+        """One escalation step through the router: doubled top_t and
+        doubled t_route."""
+        return (self.with_t_route(min(2 * self.eff_t_route, self.n_super)),
+                self.clamp(2 * top_t))
+
+    def with_t_route(self, t_route: int) -> "TreeRouter":
+        return TreeRouter(self.super_centroids, self.children,
+                          self.child_centroids, t_route, self.n_partitions)
+
+    def probe_flops(self, top_t: int) -> int:
+        return self.d * (self.n_super + self.eff_t_route * self.cmax)
+
+    def to(self, device) -> "TreeRouter":
+        return TreeRouter(self.super_centroids.to(device), self.children.to(device),
+                          self.child_centroids.to(device), self.t_route,
+                          self.n_partitions)
+
+    def route(self, Q: torch.Tensor, top_t: int):
+        """Two-level probe: `tree_route` gives the (nq, t_route·cmax)
+        candidate scores, then the final top-t with ties to the lowest
+        index, as `jax.lax.top_k` gives."""
+        scores, cand = tree_route(Q, self.super_centroids, self.child_centroids,
+                                  self.children, self.eff_t_route)
+        v, pos = topk_first(scores, min(top_t, scores.shape[-1]))
+        parts = torch.gather(cand, -1, pos)
+        # starved slots: partition 0 at -inf (the route contract)
+        return v, parts.clamp(min=0)
+
+
+def _group_children(C: torch.Tensor, SC: torch.Tensor,
+                    assign: Optional[torch.Tensor] = None):
+    """Group the c centroid rows under their nearest super centroid →
+    (children (S, cmax) int32, -1 padded; child_centroids (S, cmax, d)).
+
+    Children of a super keep ascending partition order (a stable sort of
+    the exact Euclidean assignment); `assign` overrides that assignment.
+    """
+    if assign is None:
+        assign = pairwise_neg_sqdist_argmin(C, SC)[0]
+    assign = assign.to(torch.int64)
+    c, d = C.shape
+    S = SC.shape[0]
+    counts = torch.bincount(assign, minlength=S)
+    cmax = max(1, int(counts.max()))
+    order = torch.sort(assign, stable=True).indices
+    sp = assign[order]
+    pos = torch.arange(c, device=C.device) - (torch.cumsum(counts, 0) - counts)[sp]
+    children = torch.full((S, cmax), -1, dtype=torch.int32, device=C.device)
+    children[sp, pos] = order.to(torch.int32)
+    child_centroids = torch.zeros((S, cmax, d), dtype=C.dtype, device=C.device)
+    child_centroids[sp, pos] = C[order]
+    return children, child_centroids
+
+
+def train_tree_router(gen: Optional[torch.Generator], centroids: torch.Tensor,
+                      n_super: Optional[int] = None, t_route: Optional[int] = None,
+                      iters: int = 8) -> TreeRouter:
+    """Two-level router training on the centroids' device: k-means over the
+    c centroids through the same Lloyd sweep as the build (the CUDA Lloyd
+    kernel on the card), then the exact Euclidean child assignment and its
+    grouping into the padded (S, cmax) children table.
+
+    Defaults: n_super = round(√c), t_route = ceil(n_super / 8).
+    """
+    C = centroids.to(torch.float32).contiguous()
+    c = C.shape[0]
+    S = int(n_super) if n_super else max(1, int(round(math.sqrt(c))))
+    S = min(S, c)
+    if t_route is None:
+        t_route = max(1, -(-S // 8))
+    if gen is None:
+        gen = torch.Generator().manual_seed(0)
+    if S >= c:                    # degenerate: every centroid its own super
+        SC = C.clone()
+        children, child_centroids = _group_children(
+            C, SC, torch.arange(c, device=C.device))
+    else:
+        SC = train_kmeans(gen, C, S, iters=iters, final_assign=False).centroids
+        children, child_centroids = _group_children(C, SC)
+    return TreeRouter(SC, children, child_centroids, int(t_route), c)
+
+
+def as_router(spec, centroids: torch.Tensor, gen: Optional[torch.Generator] = None,
+              **kw):
+    """Resolve a router spec at build time: None → None (flat probe,
+    nothing stored), "flat" → FlatRouter over the centroids, "tree" →
+    `train_tree_router(gen, centroids, **kw)`; a router instance passes
+    through (the frozen-router rebuild)."""
+    if spec is None:
+        return None
+    if isinstance(spec, str):
+        if spec == "flat":
+            return FlatRouter(centroids.to(torch.float32))
+        if spec == "tree":
+            return train_tree_router(gen, centroids, **kw)
+        raise ValueError(f"unknown router spec {spec!r}")
+    return spec

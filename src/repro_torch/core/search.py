@@ -1,11 +1,16 @@
 """Candidate-local, fixed-budget ANN search over a spilled IVF index
-(PyTorch port of the jit path of `repro/core/search.py`, unfiltered).
+(PyTorch port of the jit path of `repro/core/search.py`).
 
-Pipeline per query tile: flat router probe top-t → gather each query's
-own (t·pmax) candidate window from the padded layout → PQ LUT scores of
-the window (the CUDA window kernel on the card) plus the coarse ⟨q, c⟩
-term → dedup-by-max over the window → top rerank_budget → exact f32
-rerank → top final_k. No intermediate scales with the database size n.
+Pipeline per query tile: router probe top-t (flat: one matmul + top-t;
+tree: the two-level `tree_route` kernel) → gather each query's own
+(t·pmax) candidate window from the padded layout → PQ LUT scores of the
+window (the CUDA window kernel on the card) plus the coarse ⟨q, c⟩ term →
+dedup-by-max over the window → top rerank_budget → exact f32 rerank → top
+final_k. No intermediate scales with the database size n.
+
+A filter is an (n,) uint8 bitmap over point ids, gathered per window;
+with `escalate`, a second pass one router-escalation step up backs rows
+whose first-pass window was thin.
 
 Names follow the JAX package so each function's counterpart is easy to
 find; there is no jit here, PyTorch runs eagerly.
@@ -21,7 +26,7 @@ from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.router import FlatRouter, check_query_dim
 from repro_torch.kernels.pq_score import pq_score_window
 from repro_torch.quant.pq import PQCodebook, pq_lut
-from repro_torch.utils import as_tensor
+from repro_torch.utils import as_tensor, topk_first
 
 _NEG_INF = float("-inf")
 
@@ -33,6 +38,7 @@ class PackedIVF(NamedTuple):
     part_codes: (c, pmax, m) uint8 PQ codes (zeros where padded), or None
     sizes:      (c,) int32
     rerank:     (n, d) f32
+    router:     the index's probe router (core/router.py); None → flat
     """
     centroids: torch.Tensor
     part_ids: torch.Tensor
@@ -40,6 +46,7 @@ class PackedIVF(NamedTuple):
     sizes: torch.Tensor
     pq: Optional[PQCodebook]
     rerank: torch.Tensor
+    router: Optional[object] = None
 
 
 def pack_ivf(index: IVFIndex, pmax: Optional[int] = None) -> PackedIVF:
@@ -68,19 +75,12 @@ def pack_ivf(index: IVFIndex, pmax: Optional[int] = None) -> PackedIVF:
         codes[part[keep], pos[keep]] = index.codes[keep]
     return PackedIVF(index.centroids, ids, codes,
                      sizes.clamp(max=pmax).to(torch.int32), index.pq,
-                     index.rerank_f32)
+                     index.rerank_f32, index.router)
 
 
 def window_pq_scores(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """(nq, m, 16) LUTs × (nq, cand, m) uint8 window codes → (nq, cand)."""
     return pq_score_window(luts, codes)
-
-
-def _topk_first(x: torch.Tensor, k: int):
-    """Top-k along the last axis with ties to the lowest index, as
-    `jax.lax.top_k` gives (a stable descending sort)."""
-    v, pos = torch.sort(x, dim=-1, descending=True, stable=True)
-    return v[..., :k], pos[..., :k]
 
 
 def dedup_topk_window(ids: torch.Tensor, scores: torch.Tensor, k: int,
@@ -103,14 +103,14 @@ def dedup_topk_window(ids: torch.Tensor, scores: torch.Tensor, k: int,
         scores, pos = torch.topk(scores, raw, dim=-1)
         ids = torch.gather(ids, -1, pos)
     else:
-        scores, pos = _topk_first(scores, w)
+        scores, pos = topk_first(scores, w)
         ids = torch.gather(ids, -1, pos)
     ids_s, pos = torch.sort(ids, dim=-1, stable=True)    # scores stay desc
     scores_s = torch.gather(scores, -1, pos)
     first = torch.ones_like(ids_s, dtype=torch.bool)
     first[..., 1:] = ids_s[..., 1:] != ids_s[..., :-1]
     scores_s = torch.where(first & (ids_s >= 0), scores_s, _NEG_INF)
-    v, pos = _topk_first(scores_s, min(k, w))
+    v, pos = topk_first(scores_s, min(k, w))
     return torch.gather(ids_s, -1, pos).to(torch.int32), v
 
 
@@ -124,49 +124,105 @@ def _pad_topk(ids: torch.Tensor, vals: torch.Tensor, k: int):
             torch.cat([vals, vals.new_full(pad, _NEG_INF)], -1))
 
 
-def _search_pass(packed: PackedIVF, Q: torch.Tensor, router: FlatRouter,
-                 top_t: int, final_k: int, rerank_budget: int,
-                 multiplicity: int = 2):
-    """One fixed-top_t candidate-local pass → (ids, scores) (nq, final_k)."""
+def _search_pass(packed: PackedIVF, Q: torch.Tensor, router, top_t: int,
+                 final_k: int, rerank_budget: int, multiplicity: int = 2,
+                 filter: Optional[torch.Tensor] = None):
+    """One fixed-top_t candidate-local pass → (ids, scores (nq, final_k),
+    surviving).
+
+    Every width derives from the probe output, which a tree router may
+    return narrower than top_t. With a filter, filtered candidates become
+    the -1 padding sentinel before dedup, and `surviving` (else None)
+    counts the unique surviving candidates, capped at the stage budget
+    (rerank_budget with PQ, else final_k): the escalation signal.
+    """
     psc, parts = router.route(Q, top_t)                 # (nq, t)
     ids = packed.part_ids[parts]                        # (nq, t, pmax)
     nq, t, pmax = ids.shape
     ids = ids.reshape(nq, t * pmax)
     valid = ids >= 0
+    surviving = None
+    if filter is not None:
+        valid = valid & (filter[ids.clamp(min=0).to(torch.int64)] > 0)
+        ids = torch.where(valid, ids, -1)
     if packed.part_codes is None:
         # no PQ stage: exact-score the whole window; rerank_budget unused
         rows = ids.clamp(min=0).to(torch.int64)
         exact = torch.einsum("qwd,qd->qw", packed.rerank[rows], Q)
         exact = torch.where(valid, exact, _NEG_INF)
-        di, dv = dedup_topk_window(ids, exact, final_k, multiplicity)
-        return _pad_topk(di, dv, final_k)
+        di, dv = _pad_topk(*dedup_topk_window(ids, exact, final_k, multiplicity),
+                           final_k)
+        if filter is not None:
+            surviving = torch.isfinite(dv).sum(-1)
+        return di, dv, surviving
     luts = pq_lut(packed.pq, Q)                                   # (nq, m, 16)
     codes = packed.part_codes[parts].reshape(nq, t * pmax, -1)
     approx = window_pq_scores(luts, codes)
     approx = approx + torch.repeat_interleave(psc, pmax, dim=-1)  # + ⟨q, c⟩
     approx = torch.where(valid, approx, _NEG_INF)
     bi, bv = dedup_topk_window(ids, approx, rerank_budget, multiplicity)
+    if filter is not None:
+        surviving = torch.isfinite(bv).sum(-1)
     exact = torch.einsum("qbd,qd->qb",
                          packed.rerank[bi.clamp(min=0).to(torch.int64)], Q)
     exact = torch.where(torch.isfinite(bv), exact, _NEG_INF)
-    fv, fpos = _topk_first(exact, min(final_k, exact.shape[-1]))
-    return _pad_topk(torch.gather(bi, -1, fpos), fv, final_k)
+    fv, fpos = topk_first(exact, min(final_k, exact.shape[-1]))
+    fi, fv = _pad_topk(torch.gather(bi, -1, fpos), fv, final_k)
+    return fi, fv, surviving
 
 
 def _search_block(packed: PackedIVF, Q: torch.Tensor, top_t: int, final_k: int,
-                  rerank_budget: int, multiplicity: int = 2):
-    router = FlatRouter(packed.centroids)
+                  rerank_budget: int, multiplicity: int = 2,
+                  filter: Optional[torch.Tensor] = None, escalate: bool = False,
+                  router=None):
+    """One `_search_pass`, plus, on the filtered path only, a second pass
+    one router-escalation step up (flat: doubled top_t; tree: doubled top_t
+    and t_route) whose rows replace the first pass's where its surviving
+    window was thinner than the stage budget."""
+    if router is None:
+        router = packed.router if packed.router is not None \
+            else FlatRouter(packed.centroids)
     check_query_dim(Q, packed.centroids.shape[1])
-    return _search_pass(packed, Q, router, router.clamp(top_t), final_k,
-                        rerank_budget, multiplicity)
+    top_t = router.clamp(top_t)
+    ids1, vals1, surv1 = _search_pass(packed, Q, router, top_t, final_k,
+                                      rerank_budget, multiplicity, filter)
+    if filter is None or not escalate or not router.can_escalate(top_t):
+        return ids1, vals1
+    thresh = rerank_budget if packed.part_codes is not None else final_k
+    r2, t2 = router.escalated(top_t)
+    ids2, vals2, _ = _search_pass(packed, Q, r2, t2, final_k, rerank_budget,
+                                  multiplicity, filter)
+    need = (surv1 < thresh)[:, None]
+    return torch.where(need, ids2, ids1), torch.where(need, vals2, vals1)
+
+
+def _filter_bits(packed: PackedIVF, filter) -> Optional[torch.Tensor]:
+    """The (n,) filter as a uint8 tensor on the index's device (None stays
+    None). A length other than the index's point count raises."""
+    if filter is None:
+        return None
+    bits = as_tensor(filter, packed.rerank.device)
+    n = packed.rerank.shape[0]
+    if bits.dim() != 1 or bits.shape[0] != n:
+        raise ValueError(f"filter must be an ({n},) bitmap over the index's "
+                         f"points, got shape {tuple(bits.shape)}")
+    return bits.to(torch.uint8)
 
 
 def search_jit(packed: PackedIVF, Q, top_t: int, final_k: int,
-               rerank_budget: int = 256, multiplicity: int = 2):
+               rerank_budget: int = 256, multiplicity: int = 2, filter=None,
+               escalate: bool = True, router=None):
     """Batched search of all of Q at once → (ids (nq, final_k) int32,
-    scores (nq, final_k)). Q: (nq, d) numpy array or tensor."""
+    scores (nq, final_k)). Q: (nq, d) numpy array or tensor.
+
+    filter: optional (n,) bitmap over point ids (0 = drop), gathered per
+    candidate window; with `escalate` a second router-escalated pass backs
+    thin filtered windows. router: the probe router; default the one
+    packed on the index, else the flat probe.
+    """
     Q = as_tensor(Q, packed.centroids.device, torch.float32)
-    return _search_block(packed, Q, top_t, final_k, rerank_budget, multiplicity)
+    return _search_block(packed, Q, top_t, final_k, rerank_budget, multiplicity,
+                         _filter_bits(packed, filter), escalate, router)
 
 
 def bq_bucket(nq: int, bq: int) -> int:
@@ -187,17 +243,20 @@ def pad_queries(Q: np.ndarray, bq_cap: int, multiple: int = 1):
 
 def search_jit_batched(packed: PackedIVF, Q, top_t: int, final_k: int,
                        rerank_budget: int = 256, bq: int = 128,
-                       multiplicity: int = 2):
+                       multiplicity: int = 2, filter=None,
+                       escalate: bool = True, router=None):
     """`search_jit` over bq-query tiles, so live buffers stay
     O(bq·top_t·pmax) whatever nq. Every stage is query-local, so a tile's
-    results do not depend on the others."""
+    results do not depend on the others. `filter`/`escalate`/`router` as
+    in search_jit, shared by every tile."""
     Q = as_tensor(Q, packed.centroids.device, torch.float32)
+    filter = _filter_bits(packed, filter)
     nq = Q.shape[0]
     if nq == 0:
         dev = Q.device
         return (torch.zeros((0, final_k), dtype=torch.int32, device=dev),
                 torch.zeros((0, final_k), dtype=torch.float32, device=dev))
     outs = [_search_block(packed, Q[i0:i0 + bq], top_t, final_k,
-                          rerank_budget, multiplicity)
+                          rerank_budget, multiplicity, filter, escalate, router)
             for i0 in range(0, nq, bq)]
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))

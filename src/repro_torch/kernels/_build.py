@@ -37,6 +37,8 @@ SIGNATURES = {
     "vq_assign_launch": (_P, _P, _I, _I, _I, _P, _P, _P),
     "soar_assign_launch": (_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P),
     "lloyd_sweep_launch": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "tree_route_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "pq_score_launch": (_P, _P, _I, _I, _I, _P, _P),
 }
 
 

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of every CUDA kernel of the port.
 
-Counterparts of `repro/kernels/ref.py` plus the Lloyd sweep: each computes
+Counterparts of `repro/kernels/ref.py` plus the Lloyd sweep and the
+two-level route: each computes
 the same function as its kernel, in tensor ops, on any device. The kernel
 wrappers take these for CPU tensors; the tests hold them against the JAX
 package, and `chip_smoke.py` holds the kernels against them on the card.
@@ -15,6 +16,24 @@ from repro_torch.utils import pairwise_neg_sqdist_argmin
 
 _ROW_CHUNK = 16_384
 _GATHER_ELEMS = 1 << 25
+
+
+def pq_score_ref(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """luts (nq, m, 16) f32, codes (n, m) int → scores (nq, n).
+
+    score[q, i] = Σ_m luts[q, m, codes[i, m]]: every query scores every
+    row, as a flat LUT gather over row chunks of codes.
+    """
+    nq, m, k = luts.shape
+    n = codes.shape[0]
+    lutflat = luts.reshape(nq, m * k)
+    offs = torch.arange(m, device=codes.device, dtype=torch.int64) * k
+    out = torch.empty((nq, n), dtype=luts.dtype, device=luts.device)
+    step = max(1, _GATHER_ELEMS // max(1, nq * m))
+    for i0 in range(0, n, step):
+        idx = codes[i0:i0 + step].to(torch.int64) + offs          # (rows, m)
+        out[:, i0:i0 + step] = lutflat[:, idx].sum(-1)
+    return out
 
 
 def pq_score_window_ref(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -90,3 +109,25 @@ def lloyd_sweep_ref(X: torch.Tensor, C: torch.Tensor, chunk: int = 8192):
     new_C = torch.where(counts[:, None] > 0,
                         sums / counts.clamp(min=1.0)[:, None], C)
     return new_C, counts, loss / n
+
+
+def tree_route_ref(Q: torch.Tensor, SC: torch.Tensor, CC: torch.Tensor,
+                   CH: torch.Tensor, t_route: int):
+    """Two-level route → (scores (nq, t_route·cmax), ids (nq, t_route·cmax)).
+
+    One (nq, S) product, the top-t_route supers in descending order with
+    the lowest index on ties (`jax.lax.top_k`'s order, by a stable sort),
+    then per round the chosen super's children's ⟨q, c⟩, with -inf where
+    the children table holds -1 (its id stays -1). Mirrors
+    `repro/kernels/tree_route.py::tree_route_ref`.
+    """
+    ss = Q @ SC.T                                               # (nq, S)
+    sup = torch.sort(ss, dim=-1, descending=True, stable=True).indices[:, :t_route]
+    scores, ids = [], []
+    for r in range(t_route):
+        s_r = sup[:, r]
+        cid = CH[s_r]                                           # (nq, cmax)
+        sc = torch.einsum("qcd,qd->qc", CC[s_r], Q)
+        scores.append(torch.where(cid >= 0, sc, float("-inf")))
+        ids.append(cid)
+    return torch.cat(scores, -1), torch.cat(ids, -1).to(torch.int32)

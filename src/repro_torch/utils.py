@@ -1,5 +1,5 @@
-"""Shared helpers: device resolution and float32 precision, chunked exact
-nearest-centroid and exact MIPS top-k."""
+"""Shared helpers: device resolution and float32 precision, the stable
+top-k, chunked exact nearest-centroid and exact MIPS top-k."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -39,6 +39,13 @@ def as_tensor(x, device: torch.device, dtype: Optional[torch.dtype] = None):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.tensor(np.asarray(x), device=device, dtype=dtype)
+
+
+def topk_first(x: torch.Tensor, k: int):
+    """Top-k along the last axis with ties to the lowest index, as
+    `jax.lax.top_k` gives (a stable descending sort)."""
+    v, pos = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], pos[..., :k]
 
 
 def pairwise_neg_sqdist_argmin(X: torch.Tensor, C: torch.Tensor,

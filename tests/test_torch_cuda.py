@@ -1,8 +1,10 @@
-"""The port's CUDA kernels and slice on the card (marker `cuda`).
+"""The port's CUDA kernels and slices on the card (marker `cuda`).
 
 Each kernel is held against its plain PyTorch version on CUDA tensors,
-and the build + search slice on the card against the same slice on the
-CPU (which tests/test_torch_slice.py holds against the JAX package). This
+and the build + search slice and the tree-routed filtered search on the
+card against the same slices on the CPU (which tests/test_torch_slice.py,
+test_torch_router.py and test_torch_filtered.py hold against the JAX
+package). This
 file imports nothing of JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -20,8 +22,9 @@ from repro_torch.core import (build_ivf_sharded, pack_ivf,  # noqa: E402
 from repro_torch.data.vectors import make_manifold  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.lloyd import lloyd_sweep  # noqa: E402
-from repro_torch.kernels.pq_score import pq_score_window  # noqa: E402
+from repro_torch.kernels.pq_score import pq_score, pq_score_window  # noqa: E402
 from repro_torch.kernels.soar_assign import assign_fused, soar_assign  # noqa: E402
+from repro_torch.kernels.tree_route import tree_route  # noqa: E402
 from repro_torch.kernels.vq_assign import vq_assign  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -72,7 +75,8 @@ def test_assign_kernels_match_plain(cuda, n, c, d):
         assert not bool((sidx == widx).any())
 
 
-@pytest.mark.parametrize("n,c,d", [(1000, 16, 8), (3000, 64, 32), (5000, 300, 100)])
+@pytest.mark.parametrize("n,c,d", [(1000, 16, 8), (3000, 64, 32), (5000, 300, 100),
+                                   (2000, 45, 100)])   # the tree router's k-means
 def test_lloyd_sweep_matches_plain_and_repeats(cuda, n, c, d):
     X = torch.from_numpy(_normal(64, n, d)).to(cuda)
     C = X[:c].clone() + 0.01
@@ -97,15 +101,95 @@ def test_wrapper_refuses_mixed_devices(cuda):
         vq_assign(torch.zeros((4, 3), device=cuda), torch.zeros((2, 3)))
 
 
+def test_route_and_dense_wrappers_refuse_mixed_devices(cuda):
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tree_route(torch.zeros((4, 3), device=cuda), torch.zeros((2, 3), device=cuda),
+                   torch.zeros((2, 1, 3)), torch.zeros((2, 1), dtype=torch.int32), 1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pq_score(torch.zeros((2, 3, 16)), torch.zeros((5, 3), dtype=torch.uint8,
+                                                      device=cuda))
+
+
+def _tree_tables(seed, S, cmax, d, frac_pad=0.25):
+    """Random router tables with ragged children (-1 pad, as training makes)."""
+    rng = np.random.default_rng(seed)
+    SC = rng.standard_normal((S, d)).astype(np.float32)
+    CC = rng.standard_normal((S, cmax, d)).astype(np.float32)
+    pad = rng.uniform(size=(S, cmax)) < frac_pad
+    pad[:, 0] = False
+    CH = np.where(pad, -1, np.arange(S * cmax).reshape(S, cmax)).astype(np.int32)
+    CC[pad] = 0.0
+    return SC, CC, CH
+
+
+@pytest.mark.parametrize("nq,S,cmax,d,tr", [
+    (1, 4, 3, 8, 1), (7, 16, 9, 32, 3),
+    (40, 8, 16, 16, 8),         # t_route = S
+    (130, 32, 5, 24, 4),
+    (300, 45, 120, 100, 6),     # the main path's tree: S = 45, t_route = 6
+    (5, 20_000, 2, 16, 5),      # scores above 48 KB of shared memory
+])
+def test_tree_route_matches_plain(cuda, nq, S, cmax, d, tr):
+    Q = torch.from_numpy(_normal(68, nq, d)).to(cuda)
+    SC, CC, CH = (torch.from_numpy(a).to(cuda) for a in _tree_tables(69, S, cmax, d))
+    n0 = tree_route.launches
+    gs, gi = tree_route(Q, SC, CC, CH, tr)
+    torch.cuda.synchronize()
+    assert tree_route.launches == n0 + 1
+    ws, wi = ref.tree_route_ref(Q, SC, CC, CH, tr)
+    # random normals: no near-ties between supers, so the ids are equal
+    assert torch.equal(gi, wi)
+    assert torch.equal(torch.isfinite(gs), torch.isfinite(ws))
+    assert torch.equal(torch.isfinite(gs), gi >= 0)
+    fin = torch.isfinite(ws)
+    torch.testing.assert_close(gs[fin], ws[fin], rtol=1e-4, atol=1e-4)
+
+
+def test_tree_route_ties_and_oversized_supers(cuda):
+    SC = torch.ones((5, 4), device=cuda)
+    CC = torch.from_numpy(_normal(70, 5, 2, 4)).to(cuda)
+    CH = torch.arange(10, dtype=torch.int32, device=cuda).reshape(5, 2)
+    _, ids = tree_route(torch.ones((3, 4), device=cuda), SC, CC, CH, 3)
+    assert torch.equal(ids.cpu(), torch.arange(6, dtype=torch.int32).repeat(3, 1))
+    S = 60_000                   # 60,000 scores do not fit in shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        tree_route(torch.ones((1, 4), device=cuda), torch.ones((S, 4), device=cuda),
+                   torch.ones((S, 1, 4), device=cuda),
+                   torch.zeros((S, 1), dtype=torch.int32, device=cuda), 1)
+
+
+@pytest.mark.parametrize("nq,n,m", [(1, 64, 8), (7, 300, 16), (128, 512, 16),
+                                    (33, 1000, 4), (2, 2048, 32), (9, 70_001, 50),
+                                    (3, 100, 200)])   # (3, 100, 200): > 48 KB
+def test_pq_score_matches_plain(cuda, nq, n, m):
+    luts = torch.from_numpy(_normal(71, nq, m, 16)).to(cuda)
+    codes = torch.from_numpy(np.random.default_rng(72).integers(
+        0, 16, (n, m)).astype(np.uint8)).to(cuda)
+    n0 = pq_score.launches
+    got = pq_score(luts, codes)
+    torch.cuda.synchronize()
+    assert pq_score.launches == n0 + 1
+    torch.testing.assert_close(got, ref.pq_score_ref(luts, codes), rtol=1e-5, atol=1e-5)
+
+
 def _to(idx, device):
-    """The port's IVFIndex moved to another device."""
-    return convert.index_from_numpy({
+    """The port's IVFIndex, its tree router included, moved to another device."""
+    fields = {
         "centroids": idx.centroids.cpu().numpy(), "starts": idx.starts.cpu().numpy(),
         "point_ids": idx.point_ids.cpu().numpy(), "codes": idx.codes.cpu().numpy(),
         "pq.centers": idx.pq.centers.cpu().numpy(),
         "rerank_f32": idx.rerank_f32.cpu().numpy(),
         "assignments": idx.assignments.cpu().numpy(), "n_points": idx.n_points,
-        "spill_mode": idx.spill_mode, "lam": idx.lam}, device=device)
+        "spill_mode": idx.spill_mode, "lam": idx.lam}
+    rt = idx.router
+    if rt is not None:
+        fields.update({
+            "router": {"type": "tree", "t_route": rt.t_route,
+                       "n_partitions": rt.n_partitions},
+            "router.super_centroids": rt.super_centroids.cpu().numpy(),
+            "router.children": rt.children.cpu().numpy(),
+            "router.child_centroids": rt.child_centroids.cpu().numpy()})
+    return convert.index_from_numpy(fields, device=device)
 
 
 def test_slice_on_card_matches_cpu(cuda):
@@ -151,3 +235,35 @@ def test_assign_fused_on_card_matches_cpu(cuda):
         got = assign_fused(torch.from_numpy(X).to(cuda), torch.from_numpy(C).to(cuda),
                            lam, n_spills).cpu()
         assert float((got == want).all(dim=1).float().mean()) >= 0.999
+
+
+def test_tree_filtered_slice_on_card_matches_cpu(cuda):
+    """A tree-routed index built on the CPU, searched with a 1% filter and
+    escalation on both devices (the tree_route kernel on the card)."""
+    ds = make_manifold(0, 20_000, 32, nq=200, device="cpu")
+    cpu = build_ivf_sharded(torch.Generator().manual_seed(0), ds.X, 64, pq_subspaces=8,
+                            router="tree", router_kw={"t_route": 2}, device="cpu")
+    bits = torch.zeros(20_000, dtype=torch.uint8)
+    bits[torch.randperm(20_000, generator=torch.Generator().manual_seed(1))[:200]] = 1
+    kw = dict(top_t=8, final_k=10, rerank_budget=64, bq=64, filter=bits, escalate=True)
+    n0 = tree_route.launches
+    ids0, s0 = search_jit_batched(pack_ivf(cpu), ds.Q, **kw)
+    ids1, s1 = search_jit_batched(pack_ivf(_to(cpu, cuda)), ds.Q, **kw)
+    assert tree_route.launches == n0 + 2 * 4     # two passes over four tiles
+    same = (ids1.cpu() == ids0).numpy()
+    assert same.mean() >= 0.995
+    np.testing.assert_allclose(s1.cpu().numpy()[same], s0.numpy()[same], rtol=1e-5)
+    got = ids1.cpu()
+    assert bool((bits[got[got >= 0].long()] > 0).all())
+    # a tree router trained on the card: the Lloyd kernel at c rows x S supers
+    card = build_ivf_sharded(torch.Generator().manual_seed(0), ds.X, 64, pq_subspaces=8,
+                             codebook=cpu.centroids, pq=cpu.pq, router="tree",
+                             router_kw={"t_route": 2}, device=cuda)
+    assert card.router.n_super == cpu.router.n_super == 8
+    ch = card.router.children.cpu()
+    assert sorted(ch[ch >= 0].tolist()) == list(range(64))
+    gt = true_neighbors(ds.X, ds.Q, k=10)
+    kw = dict(top_t=8, final_k=10, rerank_budget=64, bq=64)
+    r_card = recall_at_k(search_jit_batched(pack_ivf(card), ds.Q, **kw)[0].cpu(), gt, 10)
+    r_cpu = recall_at_k(search_jit_batched(pack_ivf(cpu), ds.Q, **kw)[0], gt, 10)
+    assert abs(r_card - r_cpu) <= 0.05, (r_card, r_cpu)

@@ -18,8 +18,10 @@ from repro.kernels.lloyd import lloyd_sweep_pallas  # noqa: E402
 from repro.kernels.soar_assign import assign_fused as jax_assign_fused  # noqa: E402
 
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import ops as torch_ops  # noqa: E402
 from repro_torch.kernels.lloyd import lloyd_sweep  # noqa: E402
-from repro_torch.kernels.pq_score import pq_score_window  # noqa: E402
+from repro_torch.kernels.pq_score import pq_score, pq_score_window  # noqa: E402
+from repro_torch.kernels.tree_route import tree_route  # noqa: E402
 from repro_torch.kernels.soar_assign import assign_fused, soar_assign  # noqa: E402
 from repro_torch.kernels.vq_assign import vq_assign  # noqa: E402
 
@@ -36,6 +38,28 @@ def _unit_residuals(X, C, prim):
     r = X - C[prim]
     return (r / np.maximum(np.linalg.norm(r, axis=-1, keepdims=True),
                            1e-12)).astype(np.float32)
+
+
+# -------------------------------------------------- kernel 1: dense PQ score
+@pytest.mark.parametrize("nq,n,m", [
+    (1, 64, 8), (7, 300, 16), (128, 512, 16), (33, 1000, 4), (2, 2048, 32),
+])
+def test_pq_score_matches_pallas(nq, n, m):
+    luts = _normal(2, nq, m, 16)
+    codes = np.random.default_rng(3).integers(0, 16, (n, m)).astype(np.uint8)
+    want = np.asarray(ops.pq_score(jnp.asarray(luts), jnp.asarray(codes.astype(np.int32))))
+    got = torch_ops.pq_score(_t(luts), _t(codes)).numpy()
+    assert got.shape == (nq, n)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_pq_score_is_the_window_score_of_a_shared_window():
+    """Every query scoring the same rows: the dense and window scores agree."""
+    luts = _normal(4, 5, 6, 16)
+    codes = np.random.default_rng(5).integers(0, 16, (70, 6)).astype(np.uint8)
+    dense = pq_score(_t(luts), _t(codes))
+    window = pq_score_window(_t(luts), _t(np.broadcast_to(codes, (5, 70, 6))))
+    np.testing.assert_allclose(dense.numpy(), window.numpy(), rtol=1e-6, atol=1e-6)
 
 
 # ------------------------------------------------- kernel 2: PQ window score
@@ -134,18 +158,23 @@ def test_lloyd_sweep_keeps_empty_centroid():
 
 
 # ------------------------------------------------------------ the wrappers
+def _launch_counts():
+    return (pq_score.launches, pq_score_window.launches, vq_assign.launches,
+            soar_assign.launches, lloyd_sweep.launches, tree_route.launches)
+
+
 def test_cpu_path_launches_nothing():
-    before = (pq_score_window.launches, vq_assign.launches,
-              soar_assign.launches, lloyd_sweep.launches)
+    before = _launch_counts()
     X, C = _t(_normal(50, 40, 8)), _t(_normal(51, 6, 8))
     assign_fused(X, C, lam=1.0, n_spills=1)
     lloyd_sweep(X, C)
     pq_score_window(_t(_normal(52, 2, 3, 16)), torch.zeros((2, 5, 3), dtype=torch.uint8))
-    assert (pq_score_window.launches, vq_assign.launches,
-            soar_assign.launches, lloyd_sweep.launches) == before
+    pq_score(_t(_normal(53, 2, 3, 16)), torch.zeros((5, 3), dtype=torch.uint8))
+    tree_route(X, C, C[:, None].contiguous(), torch.arange(6, dtype=torch.int32)[:, None], 2)
+    assert _launch_counts() == before
 
 
-@pytest.mark.parametrize("which", ["pq", "vq", "soar", "lloyd"])
+@pytest.mark.parametrize("which", ["pq", "vq", "soar", "lloyd", "dense", "tree"])
 def test_non_cpu_tensor_never_falls_back(which):
     """A tensor that is not on the CPU must launch the kernel or raise;
     a meta tensor can do neither, so the wrapper must raise."""
@@ -159,6 +188,10 @@ def test_non_cpu_tensor_never_falls_back(which):
         "soar": lambda: soar_assign(X, X, torch.empty(8, dtype=torch.int32,
                                                       device="meta"), C),
         "lloyd": lambda: lloyd_sweep(X, C),
+        "dense": lambda: pq_score(torch.empty((1, 2, 16), device="meta"),
+                                  torch.empty((5, 2), dtype=torch.uint8, device="meta")),
+        "tree": lambda: tree_route(X, C, torch.empty((3, 2, 4), device="meta"),
+                                   torch.empty((3, 2), dtype=torch.int32, device="meta"), 1),
     }
     with pytest.raises(ValueError, match="CUDA tensors"):
         calls[which]()
@@ -175,4 +208,5 @@ def test_library_name_follows_sources():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libreprotorch_")
     assert {f.name for f in _build.CSRC.glob("*.cu")} == {
-        "pq_score_window.cu", "vq_assign.cu", "soar_assign.cu", "lloyd.cu"}
+        "pq_score.cu", "pq_score_window.cu", "vq_assign.cu", "soar_assign.cu",
+        "lloyd.cu", "tree_route.cu"}
