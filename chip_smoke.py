@@ -16,13 +16,15 @@ just after, and fails if one of its kernels was never launched:
      tree router at the JAX package's defaults: 45 supers, t_route 6) ->
      pack_ivf -> search_jit_batched through the flat router (top_t=40,
      final_k=10, rerank_budget=256, bq=128), cold then warm. Checks
-     recall@10 >= 0.85 against exact search and ids agreeing on >= 99% of
-     slots with the same search through the plain window scorer
-     (kernels: Lloyd, vq_assign, soar_assign, pq_score_window);
+     recall@10 >= 0.85 against exact search, one window-scoring launch per
+     tile, and ids agreeing on >= 99% of slots with the same search through
+     the plain probe scorer; prints one warm tile's stage times (route, ids
+     gather, window scoring, dedup, rerank) and the warm search's own peak
+     memory (kernels: Lloyd, vq_assign, soar_assign, pq_score_probes);
   4. tree-routed search of the same queries through the index's tree
      router, warm: recall@10 >= 0.85, one tree_route launch per tile, ids
      agreeing on >= 99% of slots with the same search through the plain
-     route (kernels: tree_route, pq_score_window);
+     route (kernels: tree_route, pq_score_probes);
   5. filtered tree-routed search with seeded bitmaps keeping 1% and 0.1%
      of the points, each with and without the escalated second pass:
      every returned id passes the filter, and recall@10 against exact
@@ -33,8 +35,14 @@ just after, and fails if one of its kernels was never launched:
      through the plain scorer;
   7. each kernel against its plain PyTorch version on the paths' own
      inputs, with its time (CUDA events), the plain version's time and the
-     least time the card could take (larger of bytes / 3.35 TB/s and
-     operations / 67 TFLOP/s f32, the H100 SXM's published peaks);
+     least time the card could take: the larger of bytes / 3.35 TB/s and
+     the operations' time, where f32 products (x·cᵀ) count at the TF32
+     tensor-core peak three times over (3xTF32, f32 accuracy: 495 TFLOP/s)
+     and other f32 work at 67 TFLOP/s (the H100 SXM's published peaks);
+     the assignment kernels also print the f32 SIMT figure beside it, and
+     the Lloyd record gives its launches by shape and the device times of
+     its assignment and grouping phases apart (each queued behind a longer
+     kernel, so host overhead between launches is not counted);
   8. the {"kernels": [...]} line, then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package (src/repro).
@@ -60,7 +68,7 @@ TOP_T, FINAL_K, BUDGET, BQ = 40, 10, 256, 128
 TRAIN_SAMPLE, SHARD = 131_072, 65_536
 SELECTIVITIES = (0.01, 0.001)      # filtered phase: shares of points kept
 DENSE_ROWS = 1_000_000             # code rows of the dense kernel check
-PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S = 3.35e12, 67e12, 495e12
 DEVICE = "cuda"
 
 
@@ -82,8 +90,31 @@ def time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+def device_ms(fn, busy, reps: int = 10) -> float:
+    """Mean device milliseconds of fn()'s launches alone: each round first
+    queues busy() (a longer kernel), so the host has queued all of fn's
+    launches before the device reaches them and host overhead between
+    them does not count."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for r in range(reps + 1):
+        busy()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if r:                                   # the first round warms up
+            total += start.elapsed_time(end)
+    return total / reps
+
+
+def bound(nbytes: float, ops: float, mm_ops: float = 0.0):
+    """(least ms, what bounds it): bytes at the memory rate against `ops`
+    f32 operations at the SIMT rate plus `mm_ops` f32 product operations
+    as 3xTF32 on the tensor cores."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = (ops / PEAK_F32_S + 3 * mm_ops / PEAK_TF32_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -104,6 +135,8 @@ def drive(wrappers: dict, needs, fn):
     counts after it); fails if a kernel in `needs` was never launched."""
     for w in wrappers.values():
         w.launches = 0
+        if hasattr(w, "shapes"):
+            w.shapes.clear()
     out = fn()
     sync()
     counts = {k: w.launches for k, w in wrappers.items()}
@@ -118,6 +151,37 @@ def timed(fn):
     out = fn()
     sync()
     return out, time.perf_counter() - t0
+
+
+def tile_stages(search, packed, Q, router, reps: int = 10) -> dict:
+    """Milliseconds of each stage of one warm unfiltered search tile (the
+    stages of search._search_pass) between CUDA events on the device's
+    timeline, so time the device waits on the host inside a stage counts."""
+    from repro_torch.quant.pq import pq_lut
+    from repro_torch.utils import topk_first
+    names = ("route", "ids_gather", "window_scoring", "dedup", "rerank")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    total = dict.fromkeys(names, 0.0)
+    for r in range(reps + 1):
+        ev[0].record()
+        psc, parts = router.route(Q, TOP_T)
+        ev[1].record()
+        ids = packed.part_ids[parts].reshape(Q.shape[0], -1)
+        ev[2].record()
+        approx = search.pq_score_probes(pq_lut(packed.pq, Q), packed.part_codes,
+                                        packed.sizes, parts, psc)
+        ev[3].record()
+        bi, bv = search.dedup_topk_window(ids, approx, BUDGET, 2)
+        ev[4].record()
+        exact = torch.einsum("qbd,qd->qb", packed.rerank[bi.clamp(min=0).long()], Q)
+        exact = torch.where(torch.isfinite(bv), exact, float("-inf"))
+        topk_first(exact, FINAL_K)
+        ev[5].record()
+        sync()
+        if r:                                   # the first round warms up
+            for i, k in enumerate(names):
+                total[k] += ev[i].elapsed_time(ev[i + 1]) / reps
+    return total
 
 
 def dense_scan(pq_score, luts, Qb, idx, part, k):
@@ -143,8 +207,9 @@ def main() -> int:
     from repro_torch.core.router import FlatRouter
     from repro_torch.data.vectors import make_manifold
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import lloyd as lloyd_mod
     from repro_torch.kernels.lloyd import lloyd_sweep
-    from repro_torch.kernels.pq_score import pq_score, pq_score_window
+    from repro_torch.kernels.pq_score import pq_score, pq_score_probes
     from repro_torch.kernels.soar_assign import soar_assign
     from repro_torch.kernels.tree_route import tree_route
     from repro_torch.kernels.vq_assign import vq_assign
@@ -152,7 +217,7 @@ def main() -> int:
     from repro_torch.utils import set_f32_precision, topk_inner_product
 
     set_f32_precision()
-    wrappers = {"pq_score_window": pq_score_window, "vq_assign": vq_assign,
+    wrappers = {"pq_score_probes": pq_score_probes, "vq_assign": vq_assign,
                 "soar_assign": soar_assign, "lloyd_sweep": lloyd_sweep,
                 "tree_route": tree_route, "pq_score": pq_score}
 
@@ -191,28 +256,40 @@ def main() -> int:
         flat = FlatRouter(packed.centroids)
         _, times["first_search_s"] = timed(
             lambda: search_jit_batched(packed, ds.Q, router=flat, **search_kw))
+        mem["peak_before_warm_search"] = torch.cuda.max_memory_allocated()
+        mem["resident_before_warm_search"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         (ids, _), times["search_s"] = timed(
             lambda: search_jit_batched(packed, ds.Q, router=flat, **search_kw))
+        mem["warm_search_peak"] = torch.cuda.max_memory_allocated()
         return idx, packed, flat, ids
 
+    mem: dict = {}
     (idx, packed, flat, ids), launches = drive(
-        wrappers, ("lloyd_sweep", "vq_assign", "soar_assign", "pq_score_window"),
+        wrappers, ("lloyd_sweep", "vq_assign", "soar_assign", "pq_score_probes"),
         main_path)
-    peak_mem = torch.cuda.max_memory_allocated()
+    lloyd_shapes = dict(lloyd_sweep.shapes)
+    peak_mem = max(mem["peak_before_warm_search"], mem["warm_search_peak"])
     rt = idx.router
     pmax = int(packed.part_ids.shape[1])
     sizes = idx.partition_sizes().float()
     gt = true_neighbors(ds.X, ds.Q, k=FINAL_K, chunk=65_536)
     recall = recall_at_k(ids, gt, FINAL_K)
-    with plain_version(search, "window_pq_scores", ref.pq_score_window_ref):
+    with plain_version(search, "pq_score_probes", ref.pq_score_probes_ref):
         plain_ids, _ = search_jit_batched(packed, ds.Q, router=flat, **search_kw)
     agree = float((plain_ids == ids).float().mean())
+    tiles = -(-NQ // BQ)
+    stages = tile_stages(search, packed, ds.Q[:BQ], flat)
     summary = {
         "n": N, "d": D, "nq": NQ, "c": C, "m": M, "top_t": TOP_T,
         "rerank_budget": BUDGET, "bq": BQ, **times, "build_phases_s": phases,
         "qps": NQ / times["search_s"], "recall_at_10": recall,
         "ids_agree_plain_scorer": agree,
         "max_memory_allocated_bytes": peak_mem,
+        "warm_search_peak_bytes": mem["warm_search_peak"],
+        "warm_search_peak_above_resident_bytes":
+            mem["warm_search_peak"] - mem["resident_before_warm_search"],
+        "tile_stage_ms": stages, "lloyd_launches_by_shape": lloyd_shapes,
         "n_assignments": idx.n_assignments, "pmax": pmax,
         "mean_partition": float(sizes.mean()), "window": TOP_T * pmax,
         "launches": launches,
@@ -220,12 +297,13 @@ def main() -> int:
     print("main path: " + json.dumps(summary))
     assert recall >= 0.85, f"recall@10 {recall} < 0.85"
     assert agree >= 0.99, f"ids agree with the plain scorer on {agree} < 0.99"
+    assert launches["pq_score_probes"] == 2 * tiles, \
+        f"window scoring launches {launches} != one per tile of two searches"
 
     # 4. tree-routed search through the index's router, warm
-    tiles = -(-NQ // BQ)
     search_jit_batched(packed, ds.Q, **search_kw)
     (tids, tsearch_s), tlaunch = drive(
-        wrappers, ("tree_route", "pq_score_window"),
+        wrappers, ("tree_route", "pq_score_probes"),
         lambda: timed(lambda: search_jit_batched(packed, ds.Q, **search_kw)[0]))
     trecall = recall_at_k(tids, gt, FINAL_K)
     with plain_version(router_mod, "tree_route", ref.tree_route_ref):
@@ -254,7 +332,7 @@ def main() -> int:
         fgt = keep[fidx.long()].to(torch.int32)
         runs = {}
         for esc in (True, False):
-            fids, flaunch = drive(wrappers, ("tree_route", "pq_score_window"),
+            fids, flaunch = drive(wrappers, ("tree_route", "pq_score_probes"),
                                   lambda: search_jit_batched(packed, ds.Q, filter=bits,
                                                              escalate=esc, **search_kw)[0])
             got = fids[fids >= 0].long()
@@ -285,15 +363,18 @@ def main() -> int:
                 "ids_agree_plain_scorer": dagree, "launches": dlaunch}
     print("dense scan: " + json.dumps(dsummary))
     assert dagree >= 0.99, f"dense ids agree with the plain scorer on {dagree} < 0.99"
-    path_launches = {**{k: launches[k] for k in ("pq_score_window", "vq_assign",
+    path_launches = {**{k: launches[k] for k in ("pq_score_probes", "vq_assign",
                                                    "soar_assign", "lloyd_sweep")},
                      "tree_route": tlaunch["tree_route"], "pq_score": dlaunch["pq_score"]}
 
     # 7. each kernel against its plain version, on the paths' inputs
     kernels = []
 
-    def record(name, source, replaces, err, ms, plain_ms, nbytes, ops_, **extra):
-        b_ms, b_by = bound(nbytes, ops_)
+    def record(name, source, replaces, err, ms, plain_ms, nbytes, ops_, mm_ops=0.0,
+               **extra):
+        b_ms, b_by = bound(nbytes, ops_, mm_ops)
+        if mm_ops:
+            extra["bound_simt_ms"] = bound(nbytes, ops_ + mm_ops)[0]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": path_launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -314,18 +395,22 @@ def main() -> int:
            got.numel() * M, shape=[BQ, codes.shape[0], M])
     del got, want
 
-    # kernel 2: one bq tile of the real window
-    _, parts = flat.route(Qb, TOP_T)
-    codes = packed.part_codes[parts].reshape(BQ, TOP_T * pmax, M).contiguous()
-    got, want = pq_score_window(luts, codes), ref.pq_score_window_ref(luts, codes)
-    assert torch.allclose(got, want, rtol=1e-5, atol=1e-5), "pq_score_window"
-    record("pq_score_window", "src/repro_torch/csrc/pq_score_window.cu",
+    # kernel 2: one bq tile's real probes, read from the packed table
+    psc, parts = flat.route(Qb, TOP_T)
+    pargs = (luts, packed.part_codes, packed.sizes, parts, psc)
+    got, want = pq_score_probes(*pargs), ref.pq_score_probes_ref(*pargs)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isinf(got), torch.isinf(want)), "pq_score_probes -inf slots"
+    assert torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5), "pq_score_probes"
+    code_bytes = int(packed.sizes[parts].sum()) * M      # the real rows probed
+    record("pq_score_probes", "src/repro_torch/csrc/pq_score_probes.cu",
            "src/repro/kernels/pq_score.py:116",
-           float((got - want).abs().max()),
-           time_ms(lambda: pq_score_window(luts, codes)),
-           time_ms(lambda: ref.pq_score_window_ref(luts, codes), 3),
-           codes.numel() + luts.numel() * 4 + got.numel() * 4,
-           codes.numel(), shape=list(codes.shape))
+           float((got[fin] - want[fin]).abs().max()),
+           time_ms(lambda: pq_score_probes(*pargs)),
+           time_ms(lambda: ref.pq_score_probes_ref(*pargs), 3),
+           code_bytes + luts.numel() * 4 + parts.numel() * 8 + psc.numel() * 4
+           + got.numel() * 4, code_bytes, shape=[BQ, TOP_T, pmax, M],
+           probed_code_bytes=code_bytes)
     # kernels 3 and 4: one assignment shard against the trained codebook
     Xs, Cb = ds.X[:SHARD].contiguous(), idx.centroids.contiguous()
     n, c, d = Xs.shape[0], Cb.shape[0], Xs.shape[1]
@@ -337,7 +422,7 @@ def main() -> int:
            "src/repro/kernels/vq_assign.py:56", float((gv - wv).abs().max()),
            time_ms(lambda: vq_assign(Xs, Cb)),
            time_ms(lambda: ref.vq_assign_ref(Xs, Cb)),
-           (n * d + c * d) * 4 + n * 8, 2 * n * c * d,
+           (n * d + c * d) * 4 + n * 8, 0, 2 * n * c * d,
            index_agreement=vq_agree, shape=[n, c, d])
 
     r = Xs - Cb[wi.long()]
@@ -351,7 +436,7 @@ def main() -> int:
            "src/repro/kernels/soar_assign.py:63", float((gv - sv).abs().max()),
            time_ms(lambda: soar_assign(Xs, rhat, wi, Cb, 1.0)),
            time_ms(lambda: ref.soar_assign_ref(Xs, rhat, wi, Cb, 1.0)),
-           (2 * n * d + c * d) * 4 + n * 12, 4 * n * c * d + 6 * n * c,
+           (2 * n * d + c * d) * 4 + n * 12, 6 * n * c, 4 * n * c * d,
            index_agreement=soar_agree, shape=[n, c, d])
 
     # kernel 5: one sweep over a training-sample-sized block
@@ -368,12 +453,30 @@ def main() -> int:
     assert moved <= 2 * 0.001 * n, f"lloyd counts differ by {moved}"
     assert torch.allclose(gC[same], wC[same], rtol=1e-5, atol=1e-6), "lloyd centroids"
     assert rel <= 1e-5, f"lloyd distortion rel err {rel}"
+    ai, am = lloyd_mod.assign_phase(Xt, Cb)
+    assign_agree = float((ai == ref.vq_assign_ref(Xt, Cb)[0]).float().mean())
+    assert assign_agree >= 0.999, f"lloyd assignment agrees on {assign_agree} < 0.999"
+    # the router's sweeps: its k-means over the c centroids, S supers
+    Xr, Sr = idx.centroids.contiguous(), rt.super_centroids.contiguous()
+    rcnt, wrcnt = lloyd_sweep(Xr, Sr)[1], ref.lloyd_sweep_ref(Xr, Sr)[1]
+    r_moved = float((rcnt - wrcnt).abs().sum())
+    assert r_moved <= 2 * 0.001 * Xr.shape[0] + 2, f"router-shape counts differ by {r_moved}"
+    by_shape = {k: {"launches": v} for k, v in lloyd_shapes.items()}
+    busy = lambda: lloyd_mod.assign_phase(Xt, Cb)   # noqa: E731
+    for X_, C_ in ((Xt, Cb), (Xr, Sr)):
+        by_shape.setdefault(f"{X_.shape[0]}x{C_.shape[0]}x{X_.shape[1]}",
+                            {"launches": 0})["ms"] = device_ms(lambda: lloyd_sweep(X_, C_),
+                                                               busy)
     record("lloyd_sweep", "src/repro_torch/csrc/lloyd.cu",
            "src/repro/kernels/lloyd.py:158",
            float((gC[same] - wC[same]).abs().max()),
            time_ms(lambda: lloyd_sweep(Xt, Cb)),
            time_ms(lambda: ref.lloyd_sweep_ref(Xt, Cb)),
-           (n * d + 2 * c * d + c) * 4 + 4, 2 * n * c * d + n * d,
+           (n * d + 2 * c * d + c) * 4 + 4, n * d, 2 * n * c * d,
+           assign_ms=device_ms(lambda: lloyd_mod.assign_phase(Xt, Cb), busy),
+           group_ms=device_ms(lambda: lloyd_mod.group_phase(Xt, Cb, ai, am), busy),
+           assign_index_agreement=assign_agree, by_shape=by_shape,
+           router_shape_count_moves=r_moved,
            counts_equal_share=float(same.float().mean()),
            count_moves=moved, distortion_rel_err=rel, shape=[n, c, d])
 

@@ -2,11 +2,13 @@
 (PyTorch port of the jit path of `repro/core/search.py`).
 
 Pipeline per query tile: router probe top-t (flat: one matmul + top-t;
-tree: the two-level `tree_route` kernel) → gather each query's own
-(t·pmax) candidate window from the padded layout → PQ LUT scores of the
-window (the CUDA window kernel on the card) plus the coarse ⟨q, c⟩ term →
-dedup-by-max over the window → top rerank_budget → exact f32 rerank → top
-final_k. No intermediate scales with the database size n.
+tree: the two-level `tree_route` kernel) → each query's own (t·pmax)
+candidate window of the padded layout: its point ids are gathered, its
+PQ LUT scores plus the coarse ⟨q, c⟩ term are read by probe id from the
+packed codes (`pq_score_probes`, the CUDA kernel on the card, so the
+window's codes are never gathered) → dedup-by-max over the window → top
+rerank_budget → exact f32 rerank → top final_k. No intermediate scales
+with the database size n.
 
 A filter is an (n,) uint8 bitmap over point ids, gathered per window;
 with `escalate`, a second pass one router-escalation step up backs rows
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.router import FlatRouter, check_query_dim
-from repro_torch.kernels.pq_score import pq_score_window
+from repro_torch.kernels.pq_score import pq_score_probes
 from repro_torch.quant.pq import PQCodebook, pq_lut
 from repro_torch.utils import as_tensor, topk_first
 
@@ -76,11 +78,6 @@ def pack_ivf(index: IVFIndex, pmax: Optional[int] = None) -> PackedIVF:
     return PackedIVF(index.centroids, ids, codes,
                      sizes.clamp(max=pmax).to(torch.int32), index.pq,
                      index.rerank_f32, index.router)
-
-
-def window_pq_scores(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """(nq, m, 16) LUTs × (nq, cand, m) uint8 window codes → (nq, cand)."""
-    return pq_score_window(luts, codes)
 
 
 def dedup_topk_window(ids: torch.Tensor, scores: torch.Tensor, k: int,
@@ -140,26 +137,24 @@ def _search_pass(packed: PackedIVF, Q: torch.Tensor, router, top_t: int,
     ids = packed.part_ids[parts]                        # (nq, t, pmax)
     nq, t, pmax = ids.shape
     ids = ids.reshape(nq, t * pmax)
-    valid = ids >= 0
     surviving = None
-    if filter is not None:
-        valid = valid & (filter[ids.clamp(min=0).to(torch.int64)] > 0)
-        ids = torch.where(valid, ids, -1)
+    if filter is not None:     # from here on, ids >= 0 marks the valid slots
+        ids = torch.where(filter[ids.clamp(min=0).to(torch.int64)] > 0, ids, -1)
     if packed.part_codes is None:
         # no PQ stage: exact-score the whole window; rerank_budget unused
         rows = ids.clamp(min=0).to(torch.int64)
         exact = torch.einsum("qwd,qd->qw", packed.rerank[rows], Q)
-        exact = torch.where(valid, exact, _NEG_INF)
+        exact = torch.where(ids >= 0, exact, _NEG_INF)
         di, dv = _pad_topk(*dedup_topk_window(ids, exact, final_k, multiplicity),
                            final_k)
         if filter is not None:
             surviving = torch.isfinite(dv).sum(-1)
         return di, dv, surviving
     luts = pq_lut(packed.pq, Q)                                   # (nq, m, 16)
-    codes = packed.part_codes[parts].reshape(nq, t * pmax, -1)
-    approx = window_pq_scores(luts, codes)
-    approx = approx + torch.repeat_interleave(psc, pmax, dim=-1)  # + ⟨q, c⟩
-    approx = torch.where(valid, approx, _NEG_INF)
+    # PQ score + ⟨q, c⟩, −inf past each partition's size (ids == -1)
+    approx = pq_score_probes(luts, packed.part_codes, packed.sizes, parts, psc)
+    if filter is not None:
+        approx = torch.where(ids >= 0, approx, _NEG_INF)
     bi, bv = dedup_topk_window(ids, approx, rerank_budget, multiplicity)
     if filter is not None:
         surviving = torch.isfinite(bv).sum(-1)

@@ -33,10 +33,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every C entry; the stream (last) is a pointer too
 SIGNATURES = {
-    "pq_score_window_launch": (_P, _P, _I, _I, _I, _P, _P),
+    "pq_score_probes_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "vq_assign_launch": (_P, _P, _I, _I, _I, _P, _P, _P),
     "soar_assign_launch": (_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P),
-    "lloyd_sweep_launch": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "lloyd_assign_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "lloyd_group_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "tree_route_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "pq_score_launch": (_P, _P, _I, _I, _I, _P, _P),
 }

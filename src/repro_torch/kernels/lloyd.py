@@ -1,22 +1,26 @@
 """Fused Lloyd sweep: CUDA kernel, its wrapper, and the batched sweep.
 
 `lloyd_sweep` replaces `repro/kernels/lloyd.py::lloyd_sweep_pallas`.
-Source: `csrc/lloyd.cu` (assignment through the tile loop of
-`csrc/assign.cuh`).
+Source: `csrc/lloyd.cu`, with the tensor-core tile loop of
+`csrc/assign_tc.cuh`.
 
-Bound on the H100: operations. The assignment's 2·n·c·d f32 FLOPs dwarf
-the n·d adds of the accumulation and the (n + 2c)·d·4 bytes moved. The TPU
-kernel keeps the whole codebook in VMEM and accumulates across a sequential
-grid; Hopper runs blocks in parallel with far less shared memory, so the
-sweep is three launches: the vq tile loop (no (n × c) matrix in device
-memory), a per-centroid pass that compacts its rows in row order and sums
-them in that order, and a fixed-order sum of the distortion. No float
-atomics: the sweep returns the same bits on every run.
+Bound on the H100: operations. The assignment's 2·n·c·d products at f32
+accuracy dwarf the n·d adds of the sums and the (n + 2c)·d·4 bytes moved;
+they run as 3×TF32 on the tensor cores (3 × 2·n·c·d at 495 TFLOP/s). The
+TPU kernel keeps the whole codebook in VMEM and accumulates across a
+sequential grid; Hopper runs blocks in parallel with far less shared
+memory, so the sweep is two phases: the assignment tile loop (no (n × c)
+matrix in device memory), then an O(n) integer grouping (histogram,
+scans, a stable scatter of row ids) and one warp per centroid summing its
+rows in row order. No float atomics: the sweep returns the same bits on
+every run.
 
 `lloyd_sweep_batched` is plain torch: JAX runs it as a scan outside Pallas
 on every backend (`repro/kernels/lloyd.py::lloyd_sweep_batched`).
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -26,6 +30,8 @@ from repro_torch.kernels.ref import lloyd_sweep_ref
 # below this feature dim the x·cᵀ contraction runs as an unrolled
 # multiply-add chain, as in the JAX package (repro/kernels/lloyd.py SMALL_D)
 SMALL_D = 8
+# rows per block of the grouping passes (lloyd_group_launch)
+GROUP_SEG = 2048
 
 
 def lloyd_sweep(X: torch.Tensor, C: torch.Tensor):
@@ -48,20 +54,55 @@ def _launch(X: torch.Tensor, C: torch.Tensor):
     if C.shape[1] != d or n == 0 or c == 0 or d == 0 or d > 1024:
         raise ValueError(f"unsupported shapes: X {tuple(X.shape)}, "
                          f"C {tuple(C.shape)} (need n, c >= 1, 1 <= d <= 1024)")
+    idx, mind = assign_phase(X, C)
+    out = group_phase(X, C, idx, mind)
+    lloyd_sweep.launches += 1
+    lloyd_sweep.shapes[f"{n}x{c}x{d}"] += 1
+    return out
+
+
+def _vec(d: int, *tensors: torch.Tensor) -> int:
+    """1 when rows can move as float4: d % 4 == 0 and 16-byte aligned."""
+    return int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def assign_phase(X: torch.Tensor, C: torch.Tensor):
+    """The sweep's assignment launch alone (checked CUDA inputs) →
+    (idx (n,) int32, squared distance (n,) f32)."""
+    n, d = X.shape
+    c = C.shape[0]
+    idx = torch.empty(n, dtype=torch.int32, device=X.device)
+    mind = torch.empty(n, dtype=torch.float32, device=X.device)
+    cn = torch.empty(c, dtype=torch.float32, device=X.device)
+    # the centroids' hi/lo mma fragments (csrc/assign_tc.cuh fragment_count)
+    frags = torch.empty(-(-c // 128) * -(-d // 8) * 16 * 32 * 4, dtype=torch.int32,
+                        device=X.device)
+    _build.launch("lloyd_assign_launch", X, C, n, c, d, _vec(d, X), cn, frags, idx, mind)
+    return idx, mind
+
+
+def group_phase(X: torch.Tensor, C: torch.Tensor, idx: torch.Tensor,
+                mind: torch.Tensor):
+    """The sweep's grouping and ordered sums alone, from an assignment →
+    (new_C (c, d), counts (c,) f32, mean distortion)."""
+    n, d = X.shape
+    c = C.shape[0]
     dev = X.device
-    idx = torch.empty(n, dtype=torch.int32, device=dev)
-    mind = torch.empty(n, dtype=torch.float32, device=dev)
-    part_loss = torch.empty(c, dtype=torch.float32, device=dev)
+    nb = -(-n // GROUP_SEG)
+    ints = torch.empty(nb * c + 2 * c + n, dtype=torch.int32, device=dev)
+    H, cnt, start, order = ints.split([nb * c, c, c, n])
+    seg_loss = torch.empty(nb, dtype=torch.float32, device=dev)
     new_C = torch.empty_like(C)
     counts = torch.empty(c, dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
-    _build.launch("lloyd_sweep_launch", X, C, n, c, d, idx, mind, part_loss,
-                  new_C, counts, loss)
-    lloyd_sweep.launches += 1
+    _build.launch("lloyd_group_launch", X, C, idx, mind, n, c, d,
+                  _vec(d, X, C, new_C), GROUP_SEG, H, cnt, start, order,
+                  seg_loss, new_C, counts, loss)
     return new_C, counts, loss
 
 
 lloyd_sweep.launches = 0
+lloyd_sweep.shapes = Counter()     # launches by "n x c x d", counted with them
 
 
 def batched_inner(xb: torch.Tensor, Cb: torch.Tensor) -> torch.Tensor:

@@ -1,57 +1,75 @@
 """PQ LUT scoring: CUDA kernels and their wrappers.
 
-`pq_score_window` (per-query candidate windows) replaces
-`repro/kernels/pq_score.py::pq_score_window_pallas`, source
-`csrc/pq_score_window.cu`; `pq_score` (dense: every query × every row)
-replaces `pq_score_pallas`, source `csrc/pq_score.cu`. Both TPU kernels are
-one-hot MXU contractions.
+`pq_score_probes` (each query's probed partitions, read by probe id from
+the packed table) replaces `repro/kernels/pq_score.py::pq_score_window_pallas`
+together with the window gather, the coarse term and the padding mask that
+the search wrapped around it; source `csrc/pq_score_probes.cu`. `pq_score`
+(dense: every query × every row) replaces `pq_score_pallas`, source
+`csrc/pq_score.cu`. Both TPU kernels are one-hot MXU contractions.
 
 Bound on the H100: memory, for both. The work is one LUT add per code
 byte, so the least time is the bytes (codes read once, LUTs read once,
 scores written once) over 3.35 TB/s. The designs answer that by reading
 the codes as uint8, where the JAX wrappers widen them to int32 (four times
-the bytes), by holding LUTs in shared memory, and by staging each block's
-code tile with coalesced loads. The dense kernel's output outweighs its
-codes, so it scores a staged tile against a few queries at once and
-stores along n.
+the bytes), and by holding LUTs in shared memory. The probe kernel reads
+only the probed partitions' real rows, straight from the (c, pmax, m)
+table, so no (nq, t·pmax, m) window is gathered in device memory and the
+padding is never read. The dense kernel's output outweighs its codes, so
+it scores a staged tile against a few queries at once and stores along n.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import pq_score_ref, pq_score_window_ref
+from repro_torch.kernels.ref import pq_score_probes_ref, pq_score_ref
 
 
-def pq_score_window(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """luts (nq, m, 16) f32, codes (nq, cand, m) uint8 → (nq, cand) f32.
+def pq_score_probes(luts: torch.Tensor, part_codes: torch.Tensor,
+                    sizes: torch.Tensor, parts: torch.Tensor,
+                    psc: torch.Tensor) -> torch.Tensor:
+    """luts (nq, m, 16) f32, part_codes (c, pmax, m) uint8, sizes (c,)
+    int32, parts (nq, t) int in [0, c), psc (nq, t) f32 → (nq, t·pmax) f32.
 
-    score[q, i] = Σ_m luts[q, m, codes[q, i, m]]; codes must be < 16.
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    out[q, j·pmax + i] = Σ_k luts[q, k, part_codes[parts[q, j], i, k]]
+    + psc[q, j] for i < sizes[parts[q, j]], −inf in the padding slots;
+    codes must be < 16. CPU tensors take the plain version; CUDA tensors
+    launch the kernel.
     """
-    if _build.on_cpu(luts, codes):
-        return pq_score_window_ref(luts, codes)
-    _build.require_cuda(luts, codes)
-    return _launch(luts, codes)
+    args = (luts, part_codes, sizes, parts, psc)
+    if _build.on_cpu(*args):
+        return pq_score_probes_ref(*args)
+    _build.require_cuda(*args)
+    return _launch_probes(*args)
 
 
-def _launch(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+def _launch_probes(luts, part_codes, sizes, parts, psc) -> torch.Tensor:
+    parts = parts.to(torch.int64).contiguous()
+    psc = psc.contiguous()      # a router's top-t values may be a strided view
     _build.check(luts, "luts", torch.float32, 3)
-    _build.check(codes, "codes", torch.uint8, 3)
+    _build.check(part_codes, "part_codes", torch.uint8, 3)
+    _build.check(sizes, "sizes", torch.int32, 1)
+    _build.check(psc, "psc", torch.float32, 2)
     nq, m, k = luts.shape
-    if k != 16 or codes.shape[0] != nq or codes.shape[2] != m:
-        raise ValueError(f"shape mismatch: luts {tuple(luts.shape)}, "
-                         f"codes {tuple(codes.shape)}")
-    cand = codes.shape[1]
-    out = torch.empty((nq, cand), dtype=torch.float32, device=luts.device)
+    c, pmax, _ = part_codes.shape
+    t = parts.shape[1] if parts.dim() == 2 else -1
+    if (k != 16 or part_codes.shape[2] != m or sizes.shape[0] != c
+            or parts.shape != (nq, t) or psc.shape != (nq, t)):
+        raise ValueError(f"shape mismatch: luts {tuple(luts.shape)}, part_codes "
+                         f"{tuple(part_codes.shape)}, sizes {tuple(sizes.shape)}, "
+                         f"parts {tuple(parts.shape)}, psc {tuple(psc.shape)}")
+    if part_codes.data_ptr() % 16:
+        raise ValueError("part_codes must be 16-byte aligned (a fresh tensor)")
+    out = torch.empty((nq, t * pmax), dtype=torch.float32, device=luts.device)
     if out.numel() == 0:
         return out
-    _build.launch("pq_score_window_launch", luts, codes, nq, cand, m, out)
-    pq_score_window.launches += 1
+    _build.launch("pq_score_probes_launch", luts, part_codes, sizes, parts, psc,
+                  nq, c, pmax, m, t, out)
+    pq_score_probes.launches += 1
     return out
 
 
-pq_score_window.launches = 0
+pq_score_probes.launches = 0
 
 
 def pq_score(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:

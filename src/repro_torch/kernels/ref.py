@@ -1,8 +1,8 @@
 """Plain PyTorch versions of every CUDA kernel of the port.
 
-Counterparts of `repro/kernels/ref.py` plus the Lloyd sweep and the
-two-level route: each computes
-the same function as its kernel, in tensor ops, on any device. The kernel
+Counterparts of `repro/kernels/ref.py` plus the Lloyd sweep, the
+two-level route and the probe-id window scorer: each computes the same
+function as its kernel, in tensor ops, on any device. The kernel
 wrappers take these for CPU tensors; the tests hold them against the JAX
 package, and `chip_smoke.py` holds the kernels against them on the card.
 Rows are processed in chunks so that no intermediate outgrows
@@ -54,6 +54,26 @@ def pq_score_window_ref(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor
                          idx.reshape(idx.shape[0], cand * m))
         out[q0:q0 + step] = g.reshape(-1, cand, m).sum(-1)
     return out
+
+
+def pq_score_probes_ref(luts: torch.Tensor, part_codes: torch.Tensor,
+                        sizes: torch.Tensor, parts: torch.Tensor,
+                        psc: torch.Tensor) -> torch.Tensor:
+    """luts (nq, m, 16), part_codes (c, pmax, m), sizes (c,), parts (nq, t),
+    psc (nq, t) → (nq, t·pmax).
+
+    The search's window scoring as the JAX package runs it: gather each
+    query's (t·pmax) window of codes, score it (`pq_score_window_ref`), add
+    the coarse term psc per probe and set the padding slots
+    (i ≥ sizes[parts[q, j]]) to −inf.
+    """
+    nq, t = parts.shape
+    pmax = part_codes.shape[1]
+    p = parts.to(torch.int64)
+    approx = pq_score_window_ref(luts, part_codes[p].reshape(nq, t * pmax, -1))
+    approx = approx + torch.repeat_interleave(psc, pmax, dim=-1)
+    valid = torch.arange(pmax, device=parts.device) < sizes[p][..., None]
+    return torch.where(valid.reshape(nq, t * pmax), approx, float("-inf"))
 
 
 def vq_assign_ref(X: torch.Tensor, C: torch.Tensor):

@@ -21,8 +21,9 @@ from repro_torch.core import (build_ivf_sharded, pack_ivf,  # noqa: E402
                               recall_at_k, search_jit_batched, true_neighbors)
 from repro_torch.data.vectors import make_manifold  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import lloyd as lloyd_mod  # noqa: E402
 from repro_torch.kernels.lloyd import lloyd_sweep  # noqa: E402
-from repro_torch.kernels.pq_score import pq_score, pq_score_window  # noqa: E402
+from repro_torch.kernels.pq_score import pq_score, pq_score_probes  # noqa: E402
 from repro_torch.kernels.soar_assign import assign_fused, soar_assign  # noqa: E402
 from repro_torch.kernels.tree_route import tree_route  # noqa: E402
 from repro_torch.kernels.vq_assign import vq_assign  # noqa: E402
@@ -41,18 +42,52 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("nq,cand,m", [(1, 7, 8), (8, 512, 16), (9, 1000, 50),
-                                       (3, 37, 5), (2, 300, 160)])
-def test_pq_score_window_matches_plain(cuda, nq, cand, m):
-    luts = torch.from_numpy(_normal(60, nq, m, 16)).to(cuda)
-    codes = torch.from_numpy(np.random.default_rng(61).integers(
-        0, 16, (nq, cand, m)).astype(np.uint8)).to(cuda)
-    n0 = pq_score_window.launches
-    got = pq_score_window(luts, codes)
+def probe_case(nq, t, c, pmax, m, seed=0):
+    """Seeded numpy inputs of the probe scorer: a packed (c, pmax, m) table
+    with ragged sizes (partition 0 empty, partition c-1 full), probes that
+    repeat within row 0 and reach partitions 0 and c-1, and a starved
+    probe (partition 0 at -inf) in the last row."""
+    rng = np.random.default_rng(seed)
+    luts = rng.standard_normal((nq, m, 16)).astype(np.float32)
+    codes = rng.integers(0, 16, (c, pmax, m)).astype(np.uint8)
+    sizes = rng.integers(0, pmax + 1, c).astype(np.int32)
+    sizes[0], sizes[c - 1] = 0, pmax
+    parts = rng.integers(0, c, (nq, t)).astype(np.int64)
+    parts[0, 0] = c - 1
+    if t > 1:
+        parts[0, 1] = parts[0, 0]
+    psc = rng.standard_normal((nq, t)).astype(np.float32)
+    parts[-1, -1], psc[-1, -1] = 0, -np.inf
+    return luts, codes, sizes, parts, psc
+
+
+# the CPU cases of test_torch_kernels.py, then a search tile (nq = 128) at
+# t = 1, 40 (the flat probe) and 80 (its escalation), partitions of up to
+# 1,506 rows (odd pmax: every head alignment), and m = 160
+@pytest.mark.parametrize("nq,t,c,pmax,m", [
+    (3, 4, 6, 7, 5), (8, 5, 10, 33, 16), (4, 3, 5, 40, 50), (5, 2, 4, 1, 16),
+    (2, 1, 3, 9, 50), (6, 6, 12, 20, 5),
+    (128, 1, 50, 1501, 50), (128, 40, 200, 1506, 50), (128, 80, 200, 1501, 50),
+    (7, 9, 30, 333, 160)])
+def test_pq_score_probes_matches_plain(cuda, nq, t, c, pmax, m):
+    args = [torch.from_numpy(a).to(cuda) for a in probe_case(nq, t, c, pmax, m)]
+    n0 = pq_score_probes.launches
+    got = pq_score_probes(*args)
     torch.cuda.synchronize()
-    assert pq_score_window.launches == n0 + 1
-    torch.testing.assert_close(got, ref.pq_score_window_ref(luts, codes),
-                               rtol=1e-5, atol=1e-5)
+    assert pq_score_probes.launches == n0 + 1
+    want = ref.pq_score_probes_ref(*args)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    assert bool(torch.isfinite(got[fin]).all())
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
+def test_pq_score_probes_refuses_a_misaligned_table(cuda):
+    luts, codes, sizes, parts, psc = (torch.from_numpy(a).to(cuda)
+                                      for a in probe_case(2, 3, 4, 5, 4))
+    shifted = torch.zeros(codes.numel() + 1, dtype=torch.uint8, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        pq_score_probes(luts, shifted.view(codes.shape), sizes, parts, psc)
 
 
 @pytest.mark.parametrize("n,c,d", [(100, 16, 32), (513, 100, 64),
@@ -76,7 +111,12 @@ def test_assign_kernels_match_plain(cuda, n, c, d):
 
 
 @pytest.mark.parametrize("n,c,d", [(1000, 16, 8), (3000, 64, 32), (5000, 300, 100),
-                                   (2000, 45, 100)])   # the tree router's k-means
+                                   (2000, 45, 100),    # the tree router's k-means
+                                   (100, 7, 16),       # n < 128: one ragged block
+                                   (300, 1, 12),       # c = 1
+                                   (700, 33, 13),      # d % 4 != 0: 4-byte copies
+                                   (600, 20, 1024),    # d = 1024: X streamed in the ring
+                                   (4000, 2000, 100)])  # the codebook's c and d
 def test_lloyd_sweep_matches_plain_and_repeats(cuda, n, c, d):
     X = torch.from_numpy(_normal(64, n, d)).to(cuda)
     C = X[:c].clone() + 0.01
@@ -94,6 +134,44 @@ def test_lloyd_sweep_keeps_empty_centroid(cuda):
     C = torch.cat([X[:4], torch.full((1, 6), 50.0, device=cuda)])
     gC, gcnt, _ = lloyd_sweep(X, C)
     assert float(gcnt[4]) == 0.0 and torch.equal(gC[4], C[4])
+
+
+@pytest.mark.parametrize("d", [100, 6])
+def test_lloyd_sweep_ties_go_to_the_lowest_index(cuda, d):
+    """Duplicate centroids score alike: every row picks the lower index, so
+    the higher duplicate stays empty and keeps its old centroid."""
+    X = torch.from_numpy(_normal(73, 3000, d)).to(cuda)
+    C = X[:40].clone() + 0.01
+    C[31] = C[3]
+    C[39] = C[3]
+    idx, _ = lloyd_mod.assign_phase(X, C)
+    assert int((idx == 3).sum()) > 0 and not bool(((idx == 31) | (idx == 39)).any())
+    gC, gcnt, _ = lloyd_sweep(X, C)
+    torch.testing.assert_close(gcnt, ref.lloyd_sweep_ref(X, C)[1], rtol=0, atol=0)
+    assert float(gcnt[31]) == float(gcnt[39]) == 0.0
+    assert torch.equal(gC[31], C[31]) and torch.equal(gC[39], C[39])
+
+
+@pytest.mark.parametrize("n,c,d", [(3000, 64, 32), (2049, 100, 20), (70_000, 2000, 100),
+                                   (5000, 50_000, 8)])   # counters past shared memory
+def test_lloyd_group_phase_sums_rows_in_row_order(cuda, n, c, d):
+    """Given the assignment, the grouping and sums give the bits of a
+    float32 sum of each centroid's rows in row order (numpy's unbuffered
+    add.at), over the mean: the order of the previous per-centroid scan."""
+    Xn = _normal(74, n, d)
+    Cn = _normal(75, c, d)
+    X, C = torch.from_numpy(Xn).to(cuda), torch.from_numpy(Cn).to(cuda)
+    idx, mind = lloyd_mod.assign_phase(X, C)
+    gC, gcnt, gdist = lloyd_mod.group_phase(X, C, idx, mind)
+    ii = idx.cpu().numpy().astype(np.int64)
+    sums = np.zeros((c, d), np.float32)
+    np.add.at(sums, ii, Xn)
+    cnt = np.bincount(ii, minlength=c).astype(np.float32)
+    want = np.where(cnt[:, None] > 0, sums / np.maximum(cnt, 1)[:, None], Cn)
+    np.testing.assert_array_equal(gcnt.cpu().numpy(), cnt)
+    np.testing.assert_array_equal(gC.cpu().numpy(), want)
+    m = mind.cpu().numpy().astype(np.float64)
+    assert abs(float(gdist) - m.mean()) <= 1e-6 * abs(m.mean())
 
 
 def test_wrapper_refuses_mixed_devices(cuda):
@@ -198,7 +276,7 @@ def test_slice_on_card_matches_cpu(cuda):
     ds = make_manifold(0, 20_000, 32, nq=200, device="cpu")
     X, Q = ds.X, ds.Q
     launches0 = (vq_assign.launches, soar_assign.launches, lloyd_sweep.launches,
-                 pq_score_window.launches)
+                 pq_score_probes.launches)
     cpu = build_ivf_sharded(torch.Generator().manual_seed(0), X, 64,
                             pq_subspaces=8, device="cpu")
     # frozen seam: same codebook and PQ, assignment and encode on the card
@@ -225,7 +303,7 @@ def test_slice_on_card_matches_cpu(cuda):
     assert abs(recall_at_k(ids2.cpu(), gt, 10) - recall_at_k(ids0, gt, 10)) <= 0.02
     assert all(b > a for a, b in zip(launches0, (
         vq_assign.launches, soar_assign.launches, lloyd_sweep.launches,
-        pq_score_window.launches)))
+        pq_score_probes.launches)))
 
 
 def test_assign_fused_on_card_matches_cpu(cuda):

@@ -17,13 +17,14 @@ from repro.kernels import ops  # noqa: E402
 from repro.kernels.lloyd import lloyd_sweep_pallas  # noqa: E402
 from repro.kernels.soar_assign import assign_fused as jax_assign_fused  # noqa: E402
 
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import ops as torch_ops  # noqa: E402
 from repro_torch.kernels.lloyd import lloyd_sweep  # noqa: E402
-from repro_torch.kernels.pq_score import pq_score, pq_score_window  # noqa: E402
+from repro_torch.kernels.pq_score import pq_score, pq_score_probes  # noqa: E402
 from repro_torch.kernels.tree_route import tree_route  # noqa: E402
 from repro_torch.kernels.soar_assign import assign_fused, soar_assign  # noqa: E402
 from repro_torch.kernels.vq_assign import vq_assign  # noqa: E402
+from test_torch_cuda import probe_case  # noqa: E402
 
 
 def _normal(seed, *shape):
@@ -58,7 +59,7 @@ def test_pq_score_is_the_window_score_of_a_shared_window():
     luts = _normal(4, 5, 6, 16)
     codes = np.random.default_rng(5).integers(0, 16, (70, 6)).astype(np.uint8)
     dense = pq_score(_t(luts), _t(codes))
-    window = pq_score_window(_t(luts), _t(np.broadcast_to(codes, (5, 70, 6))))
+    window = ref.pq_score_window_ref(_t(luts), _t(np.broadcast_to(codes, (5, 70, 6))))
     np.testing.assert_allclose(dense.numpy(), window.numpy(), rtol=1e-6, atol=1e-6)
 
 
@@ -68,12 +69,37 @@ WINDOW_SHAPES = [(1, 7, 8), (8, 512, 16), (9, 1000, 50), (3, 37, 5)]
 
 @pytest.mark.parametrize("nq,cand,m", WINDOW_SHAPES)
 def test_pq_score_window_matches_pallas(nq, cand, m):
+    """The plain window scorer under `ref.pq_score_probes_ref`."""
     luts = _normal(0, nq, m, 16)
     codes = np.random.default_rng(1).integers(0, 16, (nq, cand, m)).astype(np.uint8)
     want = np.asarray(ops.pq_score_window(jnp.asarray(luts),
                                           jnp.asarray(codes.astype(np.int32))))
-    got = pq_score_window(_t(luts), _t(codes)).numpy()
+    got = ref.pq_score_window_ref(_t(luts), _t(codes)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# (nq, t, c, pmax, m): ragged sizes, an empty and a full partition, a
+# repeated and a starved probe in every case; pmax = 1; m in {5, 16, 50}
+PROBE_CASES = [(3, 4, 6, 7, 5), (8, 5, 10, 33, 16), (4, 3, 5, 40, 50), (5, 2, 4, 1, 16),
+               (2, 1, 3, 9, 50), (6, 6, 12, 20, 5)]
+
+
+@pytest.mark.parametrize("nq,t,c,pmax,m", PROBE_CASES)
+def test_pq_score_probes_matches_pallas_window(nq, t, c, pmax, m):
+    """The probe scorer's plain version against the JAX package's search
+    composition: the gathered window through the Pallas window kernel,
+    plus the repeated coarse term, -inf where the slot is padding."""
+    luts, codes, sizes, parts, psc = probe_case(nq, t, c, pmax, m)
+    window = codes[parts].reshape(nq, t * pmax, m).astype(np.int32)
+    scores = ops.pq_score_window(jnp.asarray(luts), jnp.asarray(window))
+    scores = scores + jnp.repeat(jnp.asarray(psc), pmax, axis=-1)
+    valid = (np.arange(pmax) < sizes[parts][..., None]).reshape(nq, t * pmax)
+    want = np.asarray(jnp.where(jnp.asarray(valid), scores, -jnp.inf))
+    got = pq_score_probes(*(_t(a) for a in (luts, codes, sizes, parts, psc))).numpy()
+    assert got.shape == (nq, t * pmax)
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert np.isneginf(got[-1, (t - 1) * pmax:]).all()    # the starved probe
 
 
 # ------------------------------------------------ kernels 3, 4: assignment
@@ -159,7 +185,7 @@ def test_lloyd_sweep_keeps_empty_centroid():
 
 # ------------------------------------------------------------ the wrappers
 def _launch_counts():
-    return (pq_score.launches, pq_score_window.launches, vq_assign.launches,
+    return (pq_score.launches, pq_score_probes.launches, vq_assign.launches,
             soar_assign.launches, lloyd_sweep.launches, tree_route.launches)
 
 
@@ -168,7 +194,7 @@ def test_cpu_path_launches_nothing():
     X, C = _t(_normal(50, 40, 8)), _t(_normal(51, 6, 8))
     assign_fused(X, C, lam=1.0, n_spills=1)
     lloyd_sweep(X, C)
-    pq_score_window(_t(_normal(52, 2, 3, 16)), torch.zeros((2, 5, 3), dtype=torch.uint8))
+    pq_score_probes(*(_t(a) for a in probe_case(2, 3, 4, 5, 3)))
     pq_score(_t(_normal(53, 2, 3, 16)), torch.zeros((5, 3), dtype=torch.uint8))
     tree_route(X, C, C[:, None].contiguous(), torch.arange(6, dtype=torch.int32)[:, None], 2)
     assert _launch_counts() == before
@@ -181,9 +207,12 @@ def test_non_cpu_tensor_never_falls_back(which):
     X = torch.empty((8, 4), device="meta")
     C = torch.empty((3, 4), device="meta")
     calls = {
-        "pq": lambda: pq_score_window(torch.empty((1, 2, 16), device="meta"),
-                                      torch.empty((1, 5, 2), dtype=torch.uint8,
-                                                  device="meta")),
+        "pq": lambda: pq_score_probes(
+            torch.empty((1, 2, 16), device="meta"),
+            torch.empty((3, 5, 2), dtype=torch.uint8, device="meta"),
+            torch.empty(3, dtype=torch.int32, device="meta"),
+            torch.empty((1, 2), dtype=torch.int64, device="meta"),
+            torch.empty((1, 2), device="meta")),
         "vq": lambda: vq_assign(X, C),
         "soar": lambda: soar_assign(X, X, torch.empty(8, dtype=torch.int32,
                                                       device="meta"), C),
@@ -208,5 +237,5 @@ def test_library_name_follows_sources():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libreprotorch_")
     assert {f.name for f in _build.CSRC.glob("*.cu")} == {
-        "pq_score.cu", "pq_score_window.cu", "vq_assign.cu", "soar_assign.cu",
+        "pq_score.cu", "pq_score_probes.cu", "vq_assign.cu", "soar_assign.cu",
         "lloyd.cu", "tree_route.cu"}
