@@ -17,8 +17,12 @@ just after, and fails if one of its kernels was never launched:
      pack_ivf -> search_jit_batched through the flat router (top_t=40,
      final_k=10, rerank_budget=256, bq=128), cold then warm. Checks
      recall@10 >= 0.85 against exact search, one window-scoring launch per
-     tile, and ids agreeing on >= 99% of slots with the same search through
-     the plain probe scorer; prints one warm tile's stage times (route, ids
+     tile, ids agreeing on >= 99% of slots with the same search through
+     the plain probe scorer, and the index's whole (n x 2) assignment
+     matrix agreeing on >= 99.9% of rows per column with assign_shards run
+     through the plain vq and soar versions; prints the spill phase run
+     again warm (host clock) and one shard's assign_fused (CUDA events),
+     and one warm tile's stage times (route, ids
      gather, window scoring, dedup, rerank) and the warm search's own peak
      memory (kernels: Lloyd, vq_assign, soar_assign, pq_score_probes);
   4. tree-routed search of the same queries through the index's tree
@@ -39,7 +43,10 @@ just after, and fails if one of its kernels was never launched:
      the operations' time, where f32 products (x·cᵀ) count at the TF32
      tensor-core peak three times over (3xTF32, f32 accuracy: 495 TFLOP/s)
      and other f32 work at 67 TFLOP/s (the H100 SXM's published peaks);
-     the assignment kernels also print the f32 SIMT figure beside it, and
+     the assignment kernels also print the f32 SIMT figure beside it, the
+     vq and soar records the time cuBLAS takes for their products alone
+     (product_ms: torch.mm of the shard by the codebook, TF32 off, once
+     for vq and twice for soar; a yardstick the port never calls), and
      the Lloyd record gives its launches by shape and the device times of
      its assignment and grouping phases apart (each queued behind a longer
      kernel, so host overhead between launches is not counted);
@@ -204,10 +211,12 @@ def main() -> int:
     from repro_torch.core import (build_ivf_sharded, pack_ivf, recall_at_k,
                                   router as router_mod, search, search_jit_batched,
                                   true_neighbors)
+    from repro_torch.core.build import assign_shards
     from repro_torch.core.router import FlatRouter
     from repro_torch.data.vectors import make_manifold
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import lloyd as lloyd_mod
+    from repro_torch.kernels import soar_assign as soar_mod
     from repro_torch.kernels.lloyd import lloyd_sweep
     from repro_torch.kernels.pq_score import pq_score, pq_score_probes
     from repro_torch.kernels.soar_assign import soar_assign
@@ -278,6 +287,20 @@ def main() -> int:
     with plain_version(search, "pq_score_probes", ref.pq_score_probes_ref):
         plain_ids, _ = search_jit_batched(packed, ds.Q, router=flat, **search_kw)
     agree = float((plain_ids == ids).float().mean())
+    # the build's assignment against the same shards through the plain versions
+    with plain_version(soar_mod, "vq_assign_prepared",
+                       lambda X, cb: ref.vq_assign_ref(X, cb.C)), \
+            plain_version(soar_mod, "soar_assign_prepared",
+                          lambda X, R, P, cb, lam: ref.soar_assign_ref(X, R, P, cb.C, lam)):
+        plain_assign = assign_shards(ds.X, idx.centroids, spill_mode="soar", lam=1.0,
+                                     shard_size=SHARD)
+    assign_agree = [float((plain_assign[:, j] == idx.assignments[:, j]).float().mean())
+                    for j in range(idx.assignments.shape[1])]
+    del plain_assign
+    _, times["spill_assign_warm_s"] = timed(lambda: assign_shards(
+        ds.X, idx.centroids, spill_mode="soar", lam=1.0, shard_size=SHARD))
+    times["assign_fused_shard_ms"] = time_ms(
+        lambda: soar_mod.assign_fused(ds.X[:SHARD], idx.centroids, 1.0, 1))
     tiles = -(-NQ // BQ)
     stages = tile_stages(search, packed, ds.Q[:BQ], flat)
     summary = {
@@ -285,6 +308,7 @@ def main() -> int:
         "rerank_budget": BUDGET, "bq": BQ, **times, "build_phases_s": phases,
         "qps": NQ / times["search_s"], "recall_at_10": recall,
         "ids_agree_plain_scorer": agree,
+        "assignments_agree_plain_by_column": assign_agree,
         "max_memory_allocated_bytes": peak_mem,
         "warm_search_peak_bytes": mem["warm_search_peak"],
         "warm_search_peak_above_resident_bytes":
@@ -297,6 +321,8 @@ def main() -> int:
     print("main path: " + json.dumps(summary))
     assert recall >= 0.85, f"recall@10 {recall} < 0.85"
     assert agree >= 0.99, f"ids agree with the plain scorer on {agree} < 0.99"
+    assert min(assign_agree) >= 0.999, \
+        f"assignments agree with the plain versions on {assign_agree} < 0.999"
     assert launches["pq_score_probes"] == 2 * tiles, \
         f"window scoring launches {launches} != one per tile of two searches"
 
@@ -418,11 +444,14 @@ def main() -> int:
     wi, wv = ref.vq_assign_ref(Xs, Cb)
     vq_agree = float((gi == wi).float().mean())
     assert vq_agree >= 0.999 and torch.allclose(gv, wv, rtol=1e-4, atol=1e-4), "vq_assign"
+    assert not torch.backends.cuda.matmul.allow_tf32, "product_ms needs f32 products"
     record("vq_assign", "src/repro_torch/csrc/vq_assign.cu",
            "src/repro/kernels/vq_assign.py:56", float((gv - wv).abs().max()),
            time_ms(lambda: vq_assign(Xs, Cb)),
            time_ms(lambda: ref.vq_assign_ref(Xs, Cb)),
            (n * d + c * d) * 4 + n * 8, 0, 2 * n * c * d,
+           product_ms=time_ms(lambda: torch.mm(Xs, Cb.T)),
+           tile_loop="src/repro_torch/csrc/assign_tc.cuh",
            index_agreement=vq_agree, shape=[n, c, d])
 
     r = Xs - Cb[wi.long()]
@@ -437,6 +466,8 @@ def main() -> int:
            time_ms(lambda: soar_assign(Xs, rhat, wi, Cb, 1.0)),
            time_ms(lambda: ref.soar_assign_ref(Xs, rhat, wi, Cb, 1.0)),
            (2 * n * d + c * d) * 4 + n * 12, 6 * n * c, 4 * n * c * d,
+           product_ms=time_ms(lambda: (torch.mm(Xs, Cb.T), torch.mm(rhat, Cb.T))),
+           tile_loop="src/repro_torch/csrc/assign_tc.cuh",
            index_agreement=soar_agree, shape=[n, c, d])
 
     # kernel 5: one sweep over a training-sample-sized block
@@ -473,6 +504,7 @@ def main() -> int:
            time_ms(lambda: lloyd_sweep(Xt, Cb)),
            time_ms(lambda: ref.lloyd_sweep_ref(Xt, Cb)),
            (n * d + 2 * c * d + c) * 4 + 4, n * d, 2 * n * c * d,
+           tile_loop="src/repro_torch/csrc/assign_tc.cuh",
            assign_ms=device_ms(lambda: lloyd_mod.assign_phase(Xt, Cb), busy),
            group_ms=device_ms(lambda: lloyd_mod.group_phase(Xt, Cb, ai, am), busy),
            assign_index_agreement=assign_agree, by_shape=by_shape,

@@ -9,7 +9,8 @@
 // each, with no float atomics and a fixed summation order (the same bits
 // on every run):
 //   lloyd_assign_launch: ||c||^2 and the centroids' hi/lo fragments once,
-//     then the 3xTF32 tensor-core tile loop (assign_tc.cuh): idx, per-row
+//     then the 3xTF32 tensor-core tile loop (assign_tc.cuh), both shared
+//     with the nearest-centroid entry (vq_assign.cu): idx, per-row
 //     distortion. Bound: operations.
 //   lloyd_group_launch: O(n) integer grouping, then ordered sums. Bound:
 //     bytes (X read once more).
@@ -34,30 +35,6 @@ constexpr int SCAN_THREADS = 1024;
 constexpr int MAX_SCALAR = 32;       // floats per lane: d <= 32 * MAX_SCALAR = 1024
 constexpr size_t KEYS_SMEM_MAX = 160 * 1024;   // per-block counters in shared memory up to this
 constexpr unsigned FULL = 0xffffffffu;
-
-__global__ void centroid_norms_kernel(const float* __restrict__ C, int c, int d,
-                                      float* __restrict__ cn) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= c) return;
-  const float* r = C + (size_t)j * d;
-  float s = 0.f;
-  for (int k = 0; k < d; ++k) s = fmaf(r[k], r[k], s);
-  cn[j] = s;
-}
-
-__global__ void split_centroids_kernel(const float* __restrict__ C, int c, int d, size_t count,
-                                       uint4* __restrict__ Cf) {
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < count) Cf[e] = tc::centroid_fragment(C, c, d, e);
-}
-
-template <bool RESIDENT>
-__global__ void __launch_bounds__(tc::THREADS, 1)
-lloyd_assign_kernel(const float* __restrict__ X, const uint4* __restrict__ Cf,
-                    const float* __restrict__ cn, int n, int c, int d, int vec,
-                    int32_t* __restrict__ idx, float* __restrict__ mind) {
-  tc::assign_rows<RESIDENT>(X, Cf, cn, n, c, d, vec != 0, idx, mind);
-}
 
 __global__ void __launch_bounds__(G_THREADS)
 group_hist_kernel(const int32_t* __restrict__ idx, const float* __restrict__ mind, int n, int c,
@@ -291,11 +268,6 @@ group_sum_kernel(const float* __restrict__ X, const float* __restrict__ C,
   }
 }
 
-static cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 // X (n, d), C (c, d) f32 -> idx (n,) int32 nearest centroid, mind (n,) f32
 // its squared distance. Scratch: cn (c,) f32 and Cf, tc::fragment_count(c,
 // d) 16-byte entries. vec: d % 4 == 0 and X 16-byte aligned.
@@ -303,26 +275,10 @@ extern "C" int lloyd_assign_launch(const float* X, const float* C, int n, int c,
                                    float* cn, void* Cf, int32_t* idx, float* mind,
                                    cudaStream_t stream) {
   if (n < 1 || c < 1 || d < 1 || d > 1024) return (int)cudaErrorInvalidValue;
-  centroid_norms_kernel<<<tc::ceil_div(c, 256), 256, 0, stream>>>(C, c, d, cn);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t count = tc::fragment_count(c, d);
   uint4* frags = static_cast<uint4*>(Cf);
-  split_centroids_kernel<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(C, c, d, count, frags);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t smem = tc::smem_bytes(d);
-  const void* kern = tc::x_resident(d) ? (const void*)lloyd_assign_kernel<true>
-                                       : (const void*)lloyd_assign_kernel<false>;
-  err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tc::ceil_div(n, tc::BM));
-  if (tc::x_resident(d))
-    lloyd_assign_kernel<true><<<grid, tc::THREADS, smem, stream>>>(X, frags, cn, n, c, d, vec,
-                                                                   idx, mind);
-  else
-    lloyd_assign_kernel<false><<<grid, tc::THREADS, smem, stream>>>(X, frags, cn, n, c, d, vec,
-                                                                    idx, mind);
-  return (int)cudaGetLastError();
+  cudaError_t err = tc::prepare_centroids(C, c, d, cn, frags, stream);
+  if (err == cudaSuccess) err = tc::nearest(X, frags, cn, n, c, d, vec != 0, idx, mind, stream);
+  return (int)err;
 }
 
 // Grouping and ordered sums of one sweep, from the assignment's idx/mind
@@ -339,8 +295,8 @@ extern "C" int lloyd_group_launch(const float* X, const float* C, const int32_t*
   const int keys_smem = (size_t)c * sizeof(int) <= KEYS_SMEM_MAX;
   const size_t hist_smem = keys_smem ? (size_t)c * sizeof(int) : 0;
   const size_t scatter_smem = (size_t)seg * sizeof(int) + hist_smem;
-  cudaError_t err = allow_smem((const void*)group_hist_kernel, hist_smem);
-  if (err == cudaSuccess) err = allow_smem((const void*)group_scatter_kernel, scatter_smem);
+  cudaError_t err = tc::allow_smem((const void*)group_hist_kernel, hist_smem);
+  if (err == cudaSuccess) err = tc::allow_smem((const void*)group_scatter_kernel, scatter_smem);
   if (err != cudaSuccess) return (int)err;
 
   group_hist_kernel<<<nb, G_THREADS, hist_smem, stream>>>(idx, mind, n, c, seg, keys_smem, H,

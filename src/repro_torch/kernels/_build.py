@@ -34,8 +34,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every C entry; the stream (last) is a pointer too
 SIGNATURES = {
     "pq_score_probes_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
-    "vq_assign_launch": (_P, _P, _I, _I, _I, _P, _P, _P),
-    "soar_assign_launch": (_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P),
+    "assign_prepare_launch": (_P, _I, _I, _P, _P, _P),
+    "vq_assign_launch": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "soar_assign_launch": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P),
     "lloyd_assign_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "lloyd_group_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P, _P, _P),
@@ -156,3 +157,9 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name}: expected a contiguous {ndim}-d {dtype} "
                          f"tensor, got {t.dtype} {tuple(t.shape)}"
                          f"{'' if t.is_contiguous() else ' (strided)'}")
+
+
+def vec4(d: int, *tensors: torch.Tensor) -> int:
+    """1 when rows of width d can move as float4: d % 4 == 0 and every
+    tensor 16-byte aligned."""
+    return int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))

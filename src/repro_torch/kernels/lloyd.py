@@ -2,7 +2,8 @@
 
 `lloyd_sweep` replaces `repro/kernels/lloyd.py::lloyd_sweep_pallas`.
 Source: `csrc/lloyd.cu`, with the tensor-core tile loop of
-`csrc/assign_tc.cuh`.
+`csrc/assign_tc.cuh` and the codebook preparation it shares with the
+assignment kernels (`csrc/vq_assign.cu`).
 
 Bound on the H100: operations. The assignment's 2·n·c·d products at f32
 accuracy dwarf the n·d adds of the sums and the (n + 2c)·d·4 bytes moved;
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import lloyd_sweep_ref
+from repro_torch.kernels.vq_assign import centroid_scratch
 
 # below this feature dim the x·cᵀ contraction runs as an unrolled
 # multiply-add chain, as in the JAX package (repro/kernels/lloyd.py SMALL_D)
@@ -61,11 +63,6 @@ def _launch(X: torch.Tensor, C: torch.Tensor):
     return out
 
 
-def _vec(d: int, *tensors: torch.Tensor) -> int:
-    """1 when rows can move as float4: d % 4 == 0 and 16-byte aligned."""
-    return int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
-
-
 def assign_phase(X: torch.Tensor, C: torch.Tensor):
     """The sweep's assignment launch alone (checked CUDA inputs) →
     (idx (n,) int32, squared distance (n,) f32)."""
@@ -73,11 +70,9 @@ def assign_phase(X: torch.Tensor, C: torch.Tensor):
     c = C.shape[0]
     idx = torch.empty(n, dtype=torch.int32, device=X.device)
     mind = torch.empty(n, dtype=torch.float32, device=X.device)
-    cn = torch.empty(c, dtype=torch.float32, device=X.device)
-    # the centroids' hi/lo mma fragments (csrc/assign_tc.cuh fragment_count)
-    frags = torch.empty(-(-c // 128) * -(-d // 8) * 16 * 32 * 4, dtype=torch.int32,
-                        device=X.device)
-    _build.launch("lloyd_assign_launch", X, C, n, c, d, _vec(d, X), cn, frags, idx, mind)
+    cn, frags = centroid_scratch(C)
+    _build.launch("lloyd_assign_launch", X, C, n, c, d, _build.vec4(d, X), cn, frags, idx,
+                  mind)
     return idx, mind
 
 
@@ -96,7 +91,7 @@ def group_phase(X: torch.Tensor, C: torch.Tensor, idx: torch.Tensor,
     counts = torch.empty(c, dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     _build.launch("lloyd_group_launch", X, C, idx, mind, n, c, d,
-                  _vec(d, X, C, new_C), GROUP_SEG, H, cnt, start, order,
+                  _build.vec4(d, X, C, new_C), GROUP_SEG, H, cnt, start, order,
                   seg_loss, new_C, counts, loss)
     return new_C, counts, loss
 

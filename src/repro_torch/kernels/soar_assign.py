@@ -1,23 +1,32 @@
 """SOAR spilled assignment: CUDA kernel, its wrapper, and `assign_fused`.
 
 Replaces `repro/kernels/soar_assign.py::soar_assign_pallas`. Source:
-`csrc/soar_assign.cu` over the tile loop in `csrc/assign.cuh`.
+`csrc/soar_assign.cu` over the tensor-core tile loop of
+`csrc/assign_tc.cuh` in its SOAR mode.
 
-Bound on the H100: operations. Two dot products per (row, centroid), 4·n·c·d
-f32 FLOPs, against (2n + c)·d·4 bytes read. The design answers that as the
-vq kernel does (rows and centroid tiles staged in shared memory, 4 × 4
-register micro-tiles, a running (min, argmin) per row, no (n × c) matrix in
-device memory), and computes ⟨x, c⟩ and ⟨r̂, c⟩ from the same staged
-centroid tile, so the tile is read once for both. The primary's column is
-skipped in place of the Pallas kernel's +inf mask.
+Bound on the H100: operations. Two products per (row, centroid), x·cᵀ and
+r̂·cᵀ, 4·n·c·d multiply-adds at f32 accuracy against (2n + c)·d·4 bytes
+read; they run as 3×TF32 on the tensor cores (3 × 4·n·c·d at 495
+TFLOP/s: 0.318 ms at the build's shard of 65,536 × 2,000 × 100, plus the
+6·n·c epilogue operations). The design is the vq kernel's loop (the
+codebook prepared once, a `cp.async` ring of centroid fragments, no
+(n × c) matrix in device memory, a running (min, argmin) per row) with
+r̂ as a second operand: each block holds 64 rows of X and of r̂, split
+into hi/lo, and every centroid fragment it loads feeds both products, so
+the centroid tile is read once for both. 64 rows, not the vq kernel's 128,
+keep both operands in shared memory and both sets of accumulators in
+registers. The epilogue adds λ(⟨r̂,x⟩ − ⟨r̂,c⟩)² and skips the primary's
+column by id in place of the Pallas kernel's +inf mask; a row whose only
+centroid is its primary gets index 0 and +inf, as the plain version does.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import soar_assign_ref
-from repro_torch.kernels.vq_assign import vq_assign
+from repro_torch.kernels.ref import soar_assign_ref, vq_assign_ref
+from repro_torch.kernels.vq_assign import (PreparedCodebook, prepare_centroids,
+                                           vq_assign_prepared)
 
 
 def soar_assign(X: torch.Tensor, rhat: torch.Tensor, primary: torch.Tensor,
@@ -31,27 +40,28 @@ def soar_assign(X: torch.Tensor, rhat: torch.Tensor, primary: torch.Tensor,
     if _build.on_cpu(*tensors):
         return soar_assign_ref(X, rhat, primary, C, lam)
     _build.require_cuda(*tensors)
-    return _launch(X, rhat, primary, C, lam)
+    return soar_assign_prepared(X, rhat, primary, prepare_centroids(C), lam)
 
 
-def _launch(X, rhat, primary, C, lam):
+def soar_assign_prepared(X: torch.Tensor, rhat: torch.Tensor, primary: torch.Tensor,
+                         cb: PreparedCodebook, lam: float):
+    """`soar_assign` on the card against a codebook prepared already."""
+    _build.require_cuda(X, rhat, primary, cb.C)
     _build.check(X, "X", torch.float32, 2)
     _build.check(rhat, "rhat", torch.float32, 2)
     _build.check(primary, "primary", torch.int32, 1)
-    _build.check(C, "C", torch.float32, 2)
     n, d = X.shape
-    c = C.shape[0]
-    if (rhat.shape != X.shape or primary.shape[0] != n or C.shape[1] != d
-            or c == 0 or d == 0):
+    c = cb.C.shape[0]
+    if rhat.shape != X.shape or primary.shape[0] != n or cb.C.shape[1] != d:
         raise ValueError(f"shape mismatch: X {tuple(X.shape)}, rhat "
                          f"{tuple(rhat.shape)}, primary {tuple(primary.shape)}, "
-                         f"C {tuple(C.shape)}")
+                         f"C {tuple(cb.C.shape)}")
     idx = torch.empty(n, dtype=torch.int32, device=X.device)
     val = torch.empty(n, dtype=torch.float32, device=X.device)
     if n == 0:
         return idx, val
-    _build.launch("soar_assign_launch", X, rhat, primary, C, float(lam),
-                  n, c, d, idx, val)
+    _build.launch("soar_assign_launch", X, rhat, primary, cb.frags, cb.cn, float(lam),
+                  n, c, d, _build.vec4(d, X, rhat), idx, val)
     soar_assign.launches += 1
     return idx, val
 
@@ -65,17 +75,23 @@ def assign_fused(X: torch.Tensor, C: torch.Tensor, lam: float = 1.0,
 
     The TPU route of `repro/kernels/soar_assign.py::assign_fused`:
     n_spills=0 runs the vq kernel; n_spills=1 the vq kernel, the unit
-    residual r̂ in plain torch, then the soar kernel. Returns
-    (n, 1 + n_spills) int32, column 0 primary.
+    residual r̂ in plain torch, then the soar kernel. On the card the
+    codebook is prepared once for both launches. Returns (n, 1 + n_spills)
+    int32, column 0 primary.
     """
     if n_spills > 1:
         raise NotImplementedError("multi-spill: later slice")
     X = X.to(torch.float32).contiguous()
     C = C.to(torch.float32).contiguous()
-    prim, _ = vq_assign(X, C)
+    cpu = _build.on_cpu(X, C)
+    if not cpu:
+        _build.require_cuda(X, C)
+        cb = prepare_centroids(C)
+    prim = (vq_assign_ref(X, C) if cpu else vq_assign_prepared(X, cb))[0]
     if n_spills == 0:
         return prim[:, None]
     r = X - C[prim.to(torch.int64)]
     rhat = r / torch.linalg.vector_norm(r, dim=-1, keepdim=True).clamp(min=1e-12)
-    sec, _ = soar_assign(X, rhat, prim, C, lam=lam)
+    sec = (soar_assign_ref(X, rhat, prim, C, lam) if cpu
+           else soar_assign_prepared(X, rhat, prim, cb, lam))[0]
     return torch.stack([prim, sec], dim=1)

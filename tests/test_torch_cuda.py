@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import (build_ivf_sharded, pack_ivf,  # noqa: E402
                               recall_at_k, search_jit_batched, true_neighbors)
+from repro_torch.core.soar import naive_spill_assign  # noqa: E402
 from repro_torch.data.vectors import make_manifold  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import lloyd as lloyd_mod  # noqa: E402
@@ -91,7 +92,14 @@ def test_pq_score_probes_refuses_a_misaligned_table(cuda):
 
 
 @pytest.mark.parametrize("n,c,d", [(100, 16, 32), (513, 100, 64),
-                                   (64, 2000, 100), (1000, 777, 20), (70, 3, 5)])
+                                   (64, 2000, 100), (1000, 777, 20), (70, 3, 5),
+                                   (700, 33, 13),       # d % 4 != 0: 4-byte copies
+                                   (300, 50, 1536),     # X and r-hat streamed in the ring
+                                   (257, 130, 128),     # soar resident at its limit, vq streamed
+                                   (300, 40, 150),      # both streamed
+                                   (300, 1, 12),        # c = 1: soar has no column left
+                                   (500, 2, 24),        # c = 2
+                                   (65_537, 500, 100)])  # ragged last block
 def test_assign_kernels_match_plain(cuda, n, c, d):
     X = torch.from_numpy(_normal(62, n, d)).to(cuda)
     C = torch.from_numpy(_normal(63, c, d)).to(cuda)
@@ -107,7 +115,58 @@ def test_assign_kernels_match_plain(cuda, n, c, d):
         ridx, rval = ref.soar_assign_ref(X, rhat, widx, C, lam)
         assert float((sidx == ridx).float().mean()) >= 0.999
         torch.testing.assert_close(sval, rval, rtol=1e-4, atol=1e-4)
-        assert not bool((sidx == widx).any())
+        if c == 1:    # only the primary: index 0 and +inf, as the plain version
+            assert bool((sidx == 0).all()) and bool(torch.isposinf(sval).all())
+        else:
+            assert not bool((sidx == widx).any())
+
+
+def test_assign_kernels_repeat_bitwise(cuda):
+    X = torch.from_numpy(_normal(76, 5000, 100)).to(cuda)
+    C = torch.from_numpy(_normal(77, 2000, 100)).to(cuda)
+    idx, val = vq_assign(X, C)
+    again = vq_assign(X, C)
+    assert torch.equal(again[0], idx) and torch.equal(again[1], val)
+    r = X - C[idx.long()]
+    rhat = r / torch.linalg.vector_norm(r, dim=-1, keepdim=True).clamp(min=1e-12)
+    sidx, sval = soar_assign(X, rhat, idx, C, 1.0)
+    again = soar_assign(X, rhat, idx, C, 1.0)
+    assert torch.equal(again[0], sidx) and torch.equal(again[1], sval)
+
+
+@pytest.mark.parametrize("n,c,d", [(128, 64, 16), (300, 130, 48), (4000, 2000, 100)])
+def test_soar_assign_lam0_is_naive_spill_on_card(cuda, n, c, d):
+    X = torch.from_numpy(_normal(78, n, d)).to(cuda)
+    C = torch.from_numpy(_normal(79, c, d)).to(cuda)
+    prim, _ = vq_assign(X, C)
+    r = X - C[prim.long()]
+    rhat = r / torch.linalg.vector_norm(r, dim=-1, keepdim=True).clamp(min=1e-12)
+    sidx, _ = soar_assign(X, rhat, prim, C, 0.0)
+    want = naive_spill_assign(X, C, prim)
+    assert float((sidx == want).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("d", [100, 6])
+def test_assign_ties_go_to_the_lowest_index(cuda, d):
+    """Duplicate centroids score alike: vq never picks the higher copies,
+    and the spill of a row whose primary is the lowest copy goes to the
+    next copy (at lam = 0 always), never to the highest."""
+    X = torch.from_numpy(_normal(80, 3000, d)).to(cuda)
+    C = X[:40].clone() + 0.01
+    C[31] = C[3]
+    C[39] = C[3]
+    idx, _ = vq_assign(X, C)
+    assert int((idx == 3).sum()) > 0 and not bool(((idx == 31) | (idx == 39)).any())
+    assert torch.equal(idx, ref.vq_assign_ref(X, C)[0])
+    r = X - C[idx.long()]
+    rhat = r / torch.linalg.vector_norm(r, dim=-1, keepdim=True).clamp(min=1e-12)
+    for lam in (0.0, 1.0):
+        sidx, _ = soar_assign(X, rhat, idx, C, lam)
+        assert not bool((sidx == 39).any())
+        assert not bool(((sidx == 31) & (idx != 3)).any())
+        if lam == 0.0:
+            assert bool((sidx[idx == 3] == 31).all())
+        assert float((sidx == ref.soar_assign_ref(X, rhat, idx, C, lam)[0]).float().mean()) >= 0.999
 
 
 @pytest.mark.parametrize("n,c,d", [(1000, 16, 8), (3000, 64, 32), (5000, 300, 100),
@@ -115,6 +174,7 @@ def test_assign_kernels_match_plain(cuda, n, c, d):
                                    (100, 7, 16),       # n < 128: one ragged block
                                    (300, 1, 12),       # c = 1
                                    (700, 33, 13),      # d % 4 != 0: 4-byte copies
+                                   (600, 20, 150),     # d = 150: too deep to stay resident
                                    (600, 20, 1024),    # d = 1024: X streamed in the ring
                                    (4000, 2000, 100)])  # the codebook's c and d
 def test_lloyd_sweep_matches_plain_and_repeats(cuda, n, c, d):

@@ -200,7 +200,7 @@ def test_cpu_path_launches_nothing():
     assert _launch_counts() == before
 
 
-@pytest.mark.parametrize("which", ["pq", "vq", "soar", "lloyd", "dense", "tree"])
+@pytest.mark.parametrize("which", ["pq", "vq", "soar", "fused", "lloyd", "dense", "tree"])
 def test_non_cpu_tensor_never_falls_back(which):
     """A tensor that is not on the CPU must launch the kernel or raise;
     a meta tensor can do neither, so the wrapper must raise."""
@@ -216,6 +216,7 @@ def test_non_cpu_tensor_never_falls_back(which):
         "vq": lambda: vq_assign(X, C),
         "soar": lambda: soar_assign(X, X, torch.empty(8, dtype=torch.int32,
                                                       device="meta"), C),
+        "fused": lambda: assign_fused(X, C),
         "lloyd": lambda: lloyd_sweep(X, C),
         "dense": lambda: pq_score(torch.empty((1, 2, 16), device="meta"),
                                   torch.empty((5, 2), dtype=torch.uint8, device="meta")),
