@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of SOAR (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parent DIR]
 
 Phases (any failure exits nonzero; nothing is caught). Each path below is
 driven with every kernel's launch counter set to 0 just before and read
@@ -49,7 +49,19 @@ just after, and fails if one of its kernels was never launched:
      for vq and twice for soar; a yardstick the port never calls), and
      the Lloyd record gives its launches by shape and the device times of
      its assignment and grouping phases apart (each queued behind a longer
-     kernel, so host overhead between launches is not counted);
+     kernel, so host overhead between launches is not counted); the tree
+     route and the dense scorer are timed the same way (device time
+     alone), the route also at a second shape that stands for c = 32,768
+     at the router's defaults (seeded tables, S = 181, t_route = 23,
+     cmax = 256), with its wrapper's and the whole router call's host
+     microseconds per call (host clock over many calls, no synchronisation
+     between them); with --parent DIR (a checkout of the parent commit,
+     unpacked beside this one) the parent's route and dense kernels are
+     built from DIR and timed on the same inputs in the same way
+     ("parent_ms", null without it); the dense record also gives its
+     lookup floor: n * nq * m LUT lookups at 32 four-byte words a clock an
+     SM (the 128 bytes an SM's shared memory delivers), at the card's SM
+     count and its maximum SM clock (nvidia-smi);
   8. the {"kernels": [...]} line, then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package (src/repro).
@@ -57,6 +69,7 @@ It imports nothing of JAX and nothing of the JAX package (src/repro).
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -76,6 +89,7 @@ TRAIN_SAMPLE, SHARD = 131_072, 65_536
 SELECTIVITIES = (0.01, 0.001)      # filtered phase: shares of points kept
 DENSE_ROWS = 1_000_000             # code rows of the dense kernel check
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S = 3.35e12, 67e12, 495e12
+SMEM_WORDS_CLK = 32    # 4-byte words an SM's shared memory delivers a clock (128 B)
 DEVICE = "cuda"
 
 
@@ -114,6 +128,44 @@ def device_ms(fn, busy, reps: int = 10) -> float:
         if r:                                   # the first round warms up
             total += start.elapsed_time(end)
     return total / reps
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of fn() over `calls` calls with no
+    synchronisation between them: the wrapper's own cost while the device
+    works behind it."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    sync()
+    return t / calls * 1e6
+
+
+def parent_build(parent: Path):
+    """The kernel builder of the checkout at `parent` (loaded from its
+    file, so it builds that checkout's sources into its own build/)."""
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", parent / "src" / "repro_torch" / "kernels" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.library()
+    return mod
+
+
+def tree_tables(seed: int, S: int, cmax: int, d: int, device):
+    """Seeded router tables with ragged children (-1 padded, zero rows),
+    as `train_tree_router` lays them out."""
+    g = torch.Generator().manual_seed(seed)
+    SC = torch.randn((S, d), generator=g)
+    CC = torch.randn((S, cmax, d), generator=g)
+    pad = torch.rand((S, cmax), generator=g) < 0.25
+    pad[:, 0] = False
+    CH = torch.where(pad, -1, torch.arange(S * cmax).reshape(S, cmax)).to(torch.int32)
+    CC[pad] = 0.0
+    return SC.to(device), CC.to(device), CH.to(device)
 
 
 def bound(nbytes: float, ops: float, mm_ops: float = 0.0):
@@ -203,6 +255,9 @@ def dense_scan(pq_score, luts, Qb, idx, part, k):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="checkout of the parent commit: time its route and "
+                         "dense kernels beside this one's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -235,6 +290,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
           f"count {torch.cuda.device_count()}")
@@ -332,7 +391,8 @@ def main() -> int:
         wrappers, ("tree_route", "pq_score_probes"),
         lambda: timed(lambda: search_jit_batched(packed, ds.Q, **search_kw)[0]))
     trecall = recall_at_k(tids, gt, FINAL_K)
-    with plain_version(router_mod, "tree_route", ref.tree_route_ref):
+    with plain_version(router_mod, "tree_route",
+                       lambda Q, SC, CC, CH, t, **_: ref.tree_route_ref(Q, SC, CC, CH, t)):
         tplain, _ = search_jit_batched(packed, ds.Q, **search_kw)
     tagree = float((tplain == tids).float().mean())
     tree_summary = {
@@ -405,20 +465,38 @@ def main() -> int:
                         "replaces": replaces, "launches": path_launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                        **extra})
+                        "share": b_ms / ms, **extra})
         print(f"kernel {name}: err {err:.3g} ms {ms:.4f} plain {plain_ms:.4f} "
               f"bound {b_ms:.4f} ({b_by}) {extra}")
+
+    # every device time below queues each round behind this longer kernel
+    Xt, Cb = ds.X[:TRAIN_SAMPLE].contiguous(), idx.centroids.contiguous()
+    busy = lambda: lloyd_mod.assign_phase(Xt, Cb)   # noqa: E731
+    par = parent_build(args.parent.resolve()) if args.parent else None
 
     # kernel 1: one tile of LUTs against the first DENSE_ROWS code rows
     codes = idx.codes[:DENSE_ROWS]
     got, want = pq_score(luts, codes), ref.pq_score_ref(luts, codes)
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-5), "pq_score"
+    assert torch.equal(pq_score(luts, codes), got), "pq_score is not bitwise repeatable"
+    nr = codes.shape[0]
+
+    def parent_pq():
+        out = torch.empty((BQ, nr), device=DEVICE)
+        par.launch("pq_score_launch", luts, codes, BQ, nr, M, out)
+        return out
+
+    if par is not None:
+        assert torch.allclose(parent_pq(), want, rtol=1e-5, atol=1e-5), "parent pq_score"
     record("pq_score", "src/repro_torch/csrc/pq_score.cu",
            "src/repro/kernels/pq_score.py:66", float((got - want).abs().max()),
-           time_ms(lambda: pq_score(luts, codes)),
+           device_ms(lambda: pq_score(luts, codes), busy),
            time_ms(lambda: ref.pq_score_ref(luts, codes), 3),
            codes.numel() + luts.numel() * 4 + got.numel() * 4,
-           got.numel() * M, shape=[BQ, codes.shape[0], M])
+           got.numel() * M, shape=[BQ, nr, M],
+           parent_ms=device_ms(parent_pq, busy) if par else None,
+           lookup_floor_ms=got.numel() * M / (SMEM_WORDS_CLK * n_sms * sm_mhz * 1e6) * 1e3,
+           sms=n_sms, sm_max_mhz=sm_mhz)
     del got, want
 
     # kernel 2: one bq tile's real probes, read from the packed table
@@ -438,7 +516,7 @@ def main() -> int:
            + got.numel() * 4, code_bytes, shape=[BQ, TOP_T, pmax, M],
            probed_code_bytes=code_bytes)
     # kernels 3 and 4: one assignment shard against the trained codebook
-    Xs, Cb = ds.X[:SHARD].contiguous(), idx.centroids.contiguous()
+    Xs = ds.X[:SHARD].contiguous()
     n, c, d = Xs.shape[0], Cb.shape[0], Xs.shape[1]
     gi, gv = vq_assign(Xs, Cb)
     wi, wv = ref.vq_assign_ref(Xs, Cb)
@@ -471,7 +549,6 @@ def main() -> int:
            index_agreement=soar_agree, shape=[n, c, d])
 
     # kernel 5: one sweep over a training-sample-sized block
-    Xt = ds.X[:TRAIN_SAMPLE].contiguous()
     n = Xt.shape[0]
     gC, gcnt, gdist = lloyd_sweep(Xt, Cb)
     wC, wcnt, wdist = ref.lloyd_sweep_ref(Xt, Cb)
@@ -493,7 +570,6 @@ def main() -> int:
     r_moved = float((rcnt - wrcnt).abs().sum())
     assert r_moved <= 2 * 0.001 * Xr.shape[0] + 2, f"router-shape counts differ by {r_moved}"
     by_shape = {k: {"launches": v} for k, v in lloyd_shapes.items()}
-    busy = lambda: lloyd_mod.assign_phase(Xt, Cb)   # noqa: E731
     for X_, C_ in ((Xt, Cb), (Xr, Sr)):
         by_shape.setdefault(f"{X_.shape[0]}x{C_.shape[0]}x{X_.shape[1]}",
                             {"launches": 0})["ms"] = device_ms(lambda: lloyd_sweep(X_, C_),
@@ -524,14 +600,58 @@ def main() -> int:
     assert torch.equal(torch.isinf(gs[rows]), torch.isinf(ws[rows])), "tree_route masks"
     fin = torch.isfinite(ws[rows])
     assert torch.allclose(gs[rows][fin], ws[rows][fin], rtol=1e-4, atol=1e-4), "tree_route"
+    assert torch.equal(tree_route(ds.Q, *tables, tr)[0], gs), \
+        "tree_route is not bitwise repeatable"
+
+    def route_times(Q_, tabs, t_):
+        """(device ms, the parent kernel's device ms or None, the wrapper's
+        host µs per call) of one route at these inputs."""
+        S_, cm_ = tabs[2].shape
+        w = t_ * cm_
+
+        def parent_route():
+            sc = torch.empty((Q_.shape[0], w), device=DEVICE)
+            ii = torch.empty((Q_.shape[0], w), dtype=torch.int32, device=DEVICE)
+            par.launch("tree_route_launch", Q_, *tabs, Q_.shape[0], S_, cm_, Q_.shape[1],
+                       t_, sc, ii)
+            return sc, ii
+
+        if par is not None:
+            assert torch.equal(parent_route()[1], ref.tree_route_ref(Q_, *tabs, t_)[1]), \
+                "parent tree_route ids"
+        return (device_ms(lambda: tree_route(Q_, *tabs, t_), busy, 50),
+                device_ms(parent_route, busy, 50) if par else None,
+                host_us(lambda: tree_route(Q_, *tabs, t_)))
+
+    def route_bytes_ops(nq_, S_, cm_, d_, t_):
+        return ((nq_ * d_ + S_ * d_ + S_ * cm_ * d_ + S_ * cm_) * 4 + nq_ * t_ * cm_ * 8,
+                2 * nq_ * (S_ + t_ * cm_) * d_)
+
+    # the second shape: c = 32,768 at the router's defaults
+    S2, T2, CM2 = 181, 23, 256
+    tabs2 = tree_tables(args.seed, S2, CM2, D, DEVICE)
+    Q2 = ds.Q[BQ:2 * BQ]
+    g2s, g2i = tree_route(Q2, *tabs2, T2)
+    w2s, w2i = ref.tree_route_ref(Q2, *tabs2, T2)
+    assert torch.equal(g2i, w2i), "tree_route ids at the c = 32,768 shape"
+    fin2 = torch.isfinite(w2s)
+    assert torch.equal(fin2, torch.isfinite(g2s)), "tree_route masks at c = 32,768"
+    assert torch.allclose(g2s[fin2], w2s[fin2], rtol=1e-4, atol=1e-4), "tree_route c=32,768"
+    ms2, par2, host2 = route_times(Q2, tabs2, T2)
+    b2 = bound(*route_bytes_ops(BQ, S2, CM2, D, T2))
     S, cm = rt.n_super, rt.cmax
+    ms1, par1, host1 = route_times(Qb, tables, tr)
     record("tree_route", "src/repro_torch/csrc/tree_route.cu",
            "src/repro/kernels/tree_route.py:96", float((gs[rows][fin] - ws[rows][fin]).abs().max()),
-           time_ms(lambda: tree_route(Qb, *tables, tr)),
-           time_ms(lambda: ref.tree_route_ref(Qb, *tables, tr)),
-           (BQ * D + S * D + S * cm * D + S * cm) * 4 + BQ * tr * cm * 8,
-           2 * BQ * (S + tr * cm) * D, id_rows_equal_share=row_agree,
-           shape=[BQ, S, cm, D, tr])
+           ms1, time_ms(lambda: ref.tree_route_ref(Qb, *tables, tr)),
+           *route_bytes_ops(BQ, S, cm, D, tr), id_rows_equal_share=row_agree,
+           shape=[BQ, S, cm, D, tr], parent_ms=par1, host_us=host1,
+           router_call_host_us=host_us(lambda: rt.route(Qb, TOP_T)),
+           back_to_back_ms=time_ms(lambda: tree_route(Qb, *tables, tr)),
+           c32k={"shape": [BQ, S2, CM2, D, T2], "ms": ms2, "parent_ms": par2,
+                 "host_us": host2, "bound_ms": b2[0], "bound_by": b2[1],
+                 "share": b2[0] / ms2,
+                 "max_abs_err": float((g2s[fin2] - w2s[fin2]).abs().max())})
 
     # 8. result lines
     print(json.dumps({"kernels": kernels}))

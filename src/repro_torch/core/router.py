@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.kmeans import train_kmeans
-from repro_torch.kernels.tree_route import tree_route
+from repro_torch.kernels.tree_route import check_tables, tree_route
 from repro_torch.utils import pairwise_neg_sqdist_argmin, topk_first
 
 
@@ -90,7 +90,7 @@ class TreeRouter:
     n_partitions:    the partition count c, for the clamp and escalation.
 
     At t_route = S every child is scored and routing gives the flat probe
-    set.
+    set. Tables on a CUDA device are checked for the kernel once, here.
     """
 
     def __init__(self, super_centroids: torch.Tensor, children: torch.Tensor,
@@ -100,6 +100,8 @@ class TreeRouter:
         self.child_centroids = child_centroids
         self.t_route = int(t_route)
         self.n_partitions = int(n_partitions)
+        if any(t.is_cuda for t in (super_centroids, children, child_centroids)):
+            check_tables(super_centroids, child_centroids, children)
 
     @property
     def n_super(self) -> int:
@@ -147,7 +149,7 @@ class TreeRouter:
         candidate scores, then the final top-t with ties to the lowest
         index, as `jax.lax.top_k` gives."""
         scores, cand = tree_route(Q, self.super_centroids, self.child_centroids,
-                                  self.children, self.eff_t_route)
+                                  self.children, self.eff_t_route, checked=True)
         v, pos = topk_first(scores, min(top_t, scores.shape[-1]))
         parts = torch.gather(cand, -1, pos)
         # starved slots: partition 0 at -inf (the route contract)

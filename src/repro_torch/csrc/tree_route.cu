@@ -5,127 +5,191 @@
 // with -inf and id -1 where CH < 0 (children-table padding).
 // Replaces the Pallas kernel src/repro/kernels/tree_route.py::tree_route_pallas.
 //
-// Bound: memory at routing shapes. The work is 2*nq*(S + t_route*cmax)*d
-// FLOPs against the tables, the queries and the (nq, t_route*cmax) outputs;
-// at S ~ sqrt(c) the outputs and the child rows dominate. One block per
-// query: q and its S super scores sit in shared memory; warp 0 picks the
-// t_route supers by t_route rounds of a lexicographic (value desc, index
-// asc) warp argmax over the not-yet-taken supers (no atomics, so the order
-// is the reference's); then every warp scores whole child rows read
-// straight from global memory (the tables are small and stay L2-resident),
-// lanes striding over d with a shuffle reduction, so loads are coalesced.
+// Bound: the outputs and the child rows at routing shapes (S ~ sqrt(c)),
+// far below any time the card can resolve (0.5 us at c = 2,000): what the
+// kernel pays is latency, the chain of dependent round trips each block
+// makes to L2 or device memory, and at larger S the selection. So the
+// design keeps many loads in flight and selects with the whole block:
+// - one block of 16 warps per query; its warps score all S supers, then
+//   all t_route * cmax child rows of the chosen supers, round after round;
+// - rows are scored by groups of 8 lanes (a warp takes 4 rows at a time),
+//   each lane loading float4 chunks of 4 such rows at once (16 rows a
+//   warp, 256 a block) before any sum, then a 3-step shuffle within the
+//   group: where a row-at-a-time loop had one load in flight, a warp has
+//   sixteen;
+// - the t_route supers are selected at once: every thread counts, for its
+//   own supers, the supers before it in the order (score desc, NaN last,
+//   index asc), stopping at t_route; a super with r < t_route before it
+//   is round r's. The order is jax.lax.top_k's, with no serial rounds;
+// - child rows are read whether or not they are padding (the table holds
+//   them), so a row's id and its values arrive in one round trip; the
+//   padding is masked when the scores are written, coalesced along k.
 // The TPU kernel's one-hot MXU gathers and its VMEM-size gate do not carry
-// over: the rows are gathered by index, and any S whose scores fit in
-// shared memory is taken.
+// over: rows are gathered by index, and any S whose scores fit in shared
+// memory is taken.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-constexpr int TR_THREADS = 256;
+constexpr int TR_THREADS = 512;
 constexpr int TR_WARPS = TR_THREADS / 32;
-constexpr int MAX_SMEM = 232448;  // 227 KB: a block's shared-memory ceiling on sm_90
+constexpr int TR_GROUP = 8;                      // lanes that score one row
+constexpr int TR_ROWS = 32 / TR_GROUP;           // rows a warp scores side by side
+constexpr int TR_UNROLL = 4;                     // ... times this, loads in flight
+constexpr int TR_PER_WARP = TR_ROWS * TR_UNROLL;
+constexpr int TR_CHUNKS = 4;                     // vector chunks a lane loads per row and step
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// the supers' strict total order: score descending, NaN after every number,
+// lowest index first among equal scores and among NaNs
+__device__ __forceinline__ bool before(float a, int i, float b, int j) {
+  const bool na = isnan(a), nb = isnan(b);
+  if (na != nb) return nb;
+  if (!na && a != b) return a > b;
+  return i < j;
 }
 
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
+__device__ __forceinline__ float fma_dot(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+__device__ __forceinline__ float fma_dot(float a, float b, float acc) { return fmaf(a, b, acc); }
+
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float4 zero<float4>() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+
+// acc[u] = this lane's share of <q, rows[u]> (chunks sub, sub + 8, ...); a
+// null row adds nothing. All loads of a step are issued before its sums.
+template <typename T>
+__device__ __forceinline__ void dot_rows(const T* q, const T* (&rows)[TR_UNROLL], int dv,
+                                         int sub, float (&acc)[TR_UNROLL]) {
+  for (int e0 = sub; e0 < dv; e0 += TR_GROUP * TR_CHUNKS) {
+    T v[TR_UNROLL][TR_CHUNKS];
+#pragma unroll
+    for (int u = 0; u < TR_UNROLL; ++u)
+#pragma unroll
+      for (int k = 0; k < TR_CHUNKS; ++k) {
+        const int e = e0 + TR_GROUP * k;
+        v[u][k] = rows[u] != nullptr && e < dv ? __ldg(rows[u] + e) : zero<T>();
+      }
+#pragma unroll
+    for (int k = 0; k < TR_CHUNKS; ++k) {
+      const int e = e0 + TR_GROUP * k;
+      if (e < dv) {
+        const T qq = q[e];
+#pragma unroll
+        for (int u = 0; u < TR_UNROLL; ++u) acc[u] = fma_dot(qq, v[u][k], acc[u]);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < TR_UNROLL; ++u)
+    for (int o = TR_GROUP / 2; o > 0; o >>= 1) acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], o);
 }
 
+// T = float4 when d % 4 == 0 and every row is 16-byte aligned, else float
+template <typename T>
 __global__ void __launch_bounds__(TR_THREADS)
 tree_route_kernel(const float* __restrict__ Q, const float* __restrict__ SC,
                   const float* __restrict__ CC, const int* __restrict__ CH, int S, int cmax,
                   int d, int t_route, float* __restrict__ scores, int* __restrict__ ids) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* q = reinterpret_cast<float*>(smem);      // (d,)
-  float* ss = q + d;                              // (S,)
-  int* sel = reinterpret_cast<int*>(ss + S);      // (t_route,)
-  unsigned char* taken = reinterpret_cast<unsigned char*>(sel + t_route);  // (S,)
+  constexpr int V = sizeof(T) / sizeof(float);
+  const int dv = d / V;
+  T* q = reinterpret_cast<T*>(smem);                                       // (dv,)
+  float* ss = reinterpret_cast<float*>(smem + (size_t)d * sizeof(float));  // (S,)
+  int* sel = reinterpret_cast<int*>(ss + S);                               // (t_route,)
 
   const int qi = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float* qg = Q + (size_t)qi * d;
-  for (int e = threadIdx.x; e < d; e += TR_THREADS) q[e] = qg[e];
-  for (int s = threadIdx.x; s < S; s += TR_THREADS) taken[s] = 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = lane % TR_GROUP, grp = lane / TR_GROUP;
+  const T* qg = reinterpret_cast<const T*>(Q + (size_t)qi * d);
+  for (int e = tid; e < dv; e += TR_THREADS) q[e] = qg[e];
   __syncthreads();
 
-  // super scores: one warp per super row
-  for (int s = warp; s < S; s += TR_WARPS) {
-    const float* row = SC + (size_t)s * d;
-    float acc = 0.f;
-    for (int e = lane; e < d; e += 32) acc += q[e] * row[e];
-    acc = warp_sum(acc);
-    if (lane == 0) ss[s] = acc;
-  }
-  __syncthreads();
-
-  // t_route rounds of a lexicographic argmax over the untaken supers (warp 0)
-  if (warp == 0) {
-    for (int r = 0; r < t_route; ++r) {
-      float bv = -INFINITY;
-      int bi = INT32_MAX;
-      for (int s = lane; s < S; s += 32)
-        if (!taken[s] && better(ss[s], s, bv, bi)) { bv = ss[s]; bi = s; }
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-        if (better(ov, oi, bv, bi)) { bv = ov; bi = oi; }
-      }
-      if (lane == 0) {
-        if (bi >= S) {  // only NaN scores left untaken: take the lowest such index
-          bi = 0;
-          while (taken[bi]) ++bi;
-        }
-        sel[r] = bi;
-        taken[bi] = 1;
-      }
-      __syncwarp();
+  // 1. every super's score; rows base + u * 4 + grp of a warp's 16
+  for (int base = warp * TR_PER_WARP; base < S; base += TR_WARPS * TR_PER_WARP) {
+    const T* rows[TR_UNROLL];
+    float acc[TR_UNROLL];
+#pragma unroll
+    for (int u = 0; u < TR_UNROLL; ++u) {
+      const int s = base + u * TR_ROWS + grp;
+      rows[u] = s < S ? reinterpret_cast<const T*>(SC + (size_t)s * d) : nullptr;
+      acc[u] = 0.f;
+    }
+    dot_rows<T>(q, rows, dv, sub, acc);
+#pragma unroll
+    for (int u = 0; u < TR_UNROLL; ++u) {
+      const int s = base + u * TR_ROWS + grp;
+      if (sub == 0 && s < S) ss[s] = acc[u];
     }
   }
   __syncthreads();
 
-  // child rows of the chosen supers: one warp per row
+  // 2. the t_route best supers: super s goes to round r when exactly r
+  //    supers come before it (a count stops once it reaches t_route)
+  for (int s = tid; s < S; s += TR_THREADS) {
+    const float v = ss[s];
+    int n_before = 0;
+    for (int o = 0; o < S && n_before < t_route; ++o) n_before += before(ss[o], o, v, s);
+    if (n_before < t_route) sel[n_before] = s;
+  }
+  __syncthreads();
+
+  // 3. the chosen supers' child rows, round by round, padding included
+  //    (masked on the way out); output slot k = r * cmax + j
   const int w = t_route * cmax;
   float* so = scores + (size_t)qi * w;
   int* io = ids + (size_t)qi * w;
-  for (int k = warp; k < w; k += TR_WARPS) {
-    const int s = sel[k / cmax];
-    const int j = k - (k / cmax) * cmax;
-    const int cid = CH[(size_t)s * cmax + j];
-    float acc = 0.f;
-    if (cid >= 0) {  // uniform across the warp
-      const float* row = CC + ((size_t)s * cmax + j) * d;
-      for (int e = lane; e < d; e += 32) acc += q[e] * row[e];
-      acc = warp_sum(acc);
+  for (int base = warp * TR_PER_WARP; base < w; base += TR_WARPS * TR_PER_WARP) {
+    const T* rows[TR_UNROLL];
+    float acc[TR_UNROLL];
+    int cid[TR_UNROLL];
+#pragma unroll
+    for (int u = 0; u < TR_UNROLL; ++u) {
+      const int k = base + u * TR_ROWS + grp;
+      const int r = k / cmax;
+      const size_t row = k < w ? (size_t)sel[r] * cmax + (k - r * cmax) : 0;
+      rows[u] = k < w ? reinterpret_cast<const T*>(CC + row * d) : nullptr;
+      cid[u] = k < w && sub == 0 ? __ldg(CH + row) : -1;
+      acc[u] = 0.f;
     }
-    if (lane == 0) {
-      so[k] = cid >= 0 ? acc : -INFINITY;
-      io[k] = cid;
+    dot_rows<T>(q, rows, dv, sub, acc);
+#pragma unroll
+    for (int u = 0; u < TR_UNROLL; ++u) {
+      const int k = base + u * TR_ROWS + grp;
+      if (sub == 0 && k < w) {
+        so[k] = cid[u] >= 0 ? acc[u] : -INFINITY;
+        io[k] = cid[u];
+      }
     }
   }
-}
-
-// Shared memory the kernel needs for S supers, d dims and t_route rounds.
-static size_t tree_route_smem(int S, int d, int t_route) {
-  return (size_t)(d + S) * sizeof(float) + (size_t)t_route * sizeof(int) + (size_t)S;
 }
 
 // Q (nq, d) f32, SC (S, d) f32, CC (S, cmax, d) f32, CH (S, cmax) int32,
-// 1 <= t_route <= S -> scores (nq, t_route*cmax) f32, ids (nq, t_route*cmax) int32.
+// 1 <= t_route <= S, vec = 1 when d % 4 == 0 and Q, SC, CC are 16-byte
+// aligned -> scores (nq, t_route*cmax) f32, ids (nq, t_route*cmax) int32.
+// Shared memory: d + S + t_route words.
 extern "C" int tree_route_launch(const float* Q, const float* SC, const float* CC,
                                  const int* CH, int nq, int S, int cmax, int d, int t_route,
-                                 float* scores, int* ids, cudaStream_t stream) {
-  const size_t smem = tree_route_smem(S, d, t_route);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        tree_route_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+                                 int vec, float* scores, int* ids, cudaStream_t stream) {
+  const size_t smem = (size_t)(d + S + t_route) * sizeof(float);
+  const unsigned blocks = (unsigned)nq;
+  if (vec) {
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          tree_route_kernel<float4>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    tree_route_kernel<float4><<<blocks, TR_THREADS, smem, stream>>>(Q, SC, CC, CH, S, cmax, d,
+                                                                    t_route, scores, ids);
+  } else {
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          tree_route_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    tree_route_kernel<float><<<blocks, TR_THREADS, smem, stream>>>(Q, SC, CC, CH, S, cmax, d,
+                                                                   t_route, scores, ids);
   }
-  tree_route_kernel<<<nq, TR_THREADS, smem, stream>>>(Q, SC, CC, CH, S, cmax, d, t_route,
-                                                      scores, ids);
   return (int)cudaGetLastError();
 }

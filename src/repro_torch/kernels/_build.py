@@ -40,7 +40,7 @@ SIGNATURES = {
     "lloyd_assign_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "lloyd_group_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    "tree_route_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "tree_route_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "pq_score_launch": (_P, _P, _I, _I, _I, _P, _P),
 }
 
@@ -119,8 +119,10 @@ def library() -> ctypes.CDLL:
     return bind(ctypes.CDLL(str(build())))
 
 
-def current_stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+@functools.cache
+def entry(name: str):
+    """The bound C entry `name` of the kernel library, looked up once."""
+    return getattr(library(), name)
 
 
 def launch(name: str, *args) -> None:
@@ -131,15 +133,22 @@ def launch(name: str, *args) -> None:
     """
     device = next(a.device for a in args if isinstance(a, torch.Tensor))
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        rc = getattr(library(), name)(*conv, current_stream())
+    fn = entry(name)
+    if device.index == torch.cuda.current_device():
+        # the raw handle of torch.cuda.current_stream(), without building
+        # a Stream object (a few µs of host time a launch)
+        rc = fn(*conv, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*conv, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU: the plain version's case."""
-    return all(t.device.type == "cpu" for t in tensors)
+    return not any(t.is_cuda for t in tensors) and all(
+        t.device.type == "cpu" for t in tensors)
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:

@@ -14,8 +14,11 @@ the codes as uint8, where the JAX wrappers widen them to int32 (four times
 the bytes), and by holding LUTs in shared memory. The probe kernel reads
 only the probed partitions' real rows, straight from the (c, pmax, m)
 table, so no (nq, t·pmax, m) window is gathered in device memory and the
-padding is never read. The dense kernel's output outweighs its codes, so
-it scores a staged tile against a few queries at once and stores along n.
+padding is never read. The dense kernel's output outweighs its codes, but
+with its LUTs in shared memory it is held by the lookups (nq·n·m of them)
+before the bytes: resident blocks keep a group of up to 64 queries' LUTs,
+interleaved by query pair so one 64-bit shared load returns two queries'
+entries, and stream code tiles past them; it stores along n.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import pq_score_probes_ref, pq_score_ref
+
+SMEM_LIMIT = 232_448      # bytes of shared memory one block may use on sm_90
 
 
 def pq_score_probes(luts: torch.Tensor, part_codes: torch.Tensor,
@@ -87,6 +92,12 @@ def pq_score(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     if k != 16 or codes.shape[1] != m:
         raise ValueError(f"shape mismatch: luts {tuple(luts.shape)}, "
                          f"codes {tuple(codes.shape)}")
+    if _dense_smem(2, m) > SMEM_LIMIT:
+        raise ValueError(f"m={m}: two queries' LUTs and the code ring need "
+                         f"{_dense_smem(2, m)} bytes of shared memory, above "
+                         f"the {SMEM_LIMIT} a block may use")
+    if codes.data_ptr() % 16:
+        codes = codes.clone()      # the kernel copies 16-byte chunks
     n = codes.shape[0]
     out = torch.empty((nq, n), dtype=torch.float32, device=luts.device)
     if out.numel() == 0:
@@ -94,6 +105,12 @@ def pq_score(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     _build.launch("pq_score_launch", luts, codes, nq, n, m, out)
     pq_score.launches += 1
     return out
+
+
+def _dense_smem(group: int, m: int) -> int:
+    """Shared memory of the dense kernel's block: `group` queries' LUTs and
+    two 256-row code tiles (`csrc/pq_score.cu::pq_smem`)."""
+    return group * m * 16 * 4 + 2 * 256 * m
 
 
 pq_score.launches = 0

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import (build_ivf_sharded, pack_ivf,  # noqa: E402
                               recall_at_k, search_jit_batched, true_neighbors)
+from repro_torch.core.router import TreeRouter  # noqa: E402
 from repro_torch.core.soar import naive_spill_assign  # noqa: E402
 from repro_torch.data.vectors import make_manifold  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -266,6 +267,10 @@ def _tree_tables(seed, S, cmax, d, frac_pad=0.25):
     (130, 32, 5, 24, 4),
     (300, 45, 120, 100, 6),     # the main path's tree: S = 45, t_route = 6
     (5, 20_000, 2, 16, 5),      # scores above 48 KB of shared memory
+    (128, 181, 256, 100, 23),   # c = 32,768 at the router's defaults
+    (37, 45, 62, 100, 6),       # the main path's tables, a ragged tile
+    (9, 45, 62, 100, 45),       # t_route = S with padded children
+    (11, 10, 7, 13, 3),         # d % 4 != 0: rows read a float at a time
 ])
 def test_tree_route_matches_plain(cuda, nq, S, cmax, d, tr):
     Q = torch.from_numpy(_normal(68, nq, d)).to(cuda)
@@ -283,6 +288,45 @@ def test_tree_route_matches_plain(cuda, nq, S, cmax, d, tr):
     torch.testing.assert_close(gs[fin], ws[fin], rtol=1e-4, atol=1e-4)
 
 
+def test_tree_route_misaligned_queries_and_repeats(cuda):
+    nq, S, cmax, d, tr = 19, 45, 62, 100, 6
+    buf = torch.from_numpy(_normal(73, nq * d + 1)).to(cuda)
+    Q = buf[1:].view(nq, d)                # contiguous, 4 bytes past 16-byte alignment
+    SC, CC, CH = (torch.from_numpy(a).to(cuda) for a in _tree_tables(74, S, cmax, d))
+    gs, gi = tree_route(Q, SC, CC, CH, tr)
+    ws, wi = ref.tree_route_ref(Q, SC, CC, CH, tr)
+    assert torch.equal(gi, wi)
+    fin = torch.isfinite(ws)
+    torch.testing.assert_close(gs[fin], ws[fin], rtol=1e-4, atol=1e-4)
+    Qa = Q.clone()
+    a = tree_route(Qa, SC, CC, CH, tr)
+    b = tree_route(Qa, SC, CC, CH, tr, checked=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))   # two calls, the same bits
+
+
+def test_tree_route_nan_supers_come_last(cuda):
+    # NaN scores are taken after every number, the lowest index first
+    SC = torch.tensor([[1.0], [float("nan")], [3.0], [float("nan")], [2.0]], device=cuda)
+    CC = torch.ones((5, 1, 1), device=cuda)
+    CH = torch.arange(5, dtype=torch.int32, device=cuda).reshape(5, 1)
+    _, ids = tree_route(torch.ones((2, 1), device=cuda), SC, CC, CH, 5)
+    assert ids.cpu().tolist() == [[2, 4, 0, 1, 3]] * 2
+
+
+def test_tree_router_checks_its_tables_once(cuda):
+    SC, CC, CH = (torch.from_numpy(a).to(cuda) for a in _tree_tables(75, 45, 62, 32))
+    rt = TreeRouter(SC, CH, CC, 6, 45 * 62)
+    Q = torch.from_numpy(_normal(76, 50, 32)).to(cuda)
+    got = rt.route(Q, 20)
+    want = TreeRouter(SC.cpu(), CH.cpu(), CC.cpu(), 6, 45 * 62).route(Q.cpu(), 20)
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        TreeRouter(SC, CH.cpu(), CC, 6, 45 * 62)      # mixed devices refused when built
+    with pytest.raises(ValueError, match="int32"):
+        TreeRouter(SC, CH.long(), CC, 6, 45 * 62)
+
+
 def test_tree_route_ties_and_oversized_supers(cuda):
     SC = torch.ones((5, 4), device=cuda)
     CC = torch.from_numpy(_normal(70, 5, 2, 4)).to(cuda)
@@ -298,7 +342,11 @@ def test_tree_route_ties_and_oversized_supers(cuda):
 
 @pytest.mark.parametrize("nq,n,m", [(1, 64, 8), (7, 300, 16), (128, 512, 16),
                                     (33, 1000, 4), (2, 2048, 32), (9, 70_001, 50),
-                                    (3, 100, 200)])   # (3, 100, 200): > 48 KB
+                                    (3, 100, 200),    # (3, 100, 200): > 48 KB
+                                    (128, 70_001, 50),  # two groups of 64 queries
+                                    (65, 5_000, 50),    # a group of one query
+                                    (200, 10_000, 24), (5, 3_000, 7),
+                                    (3, 3_000_001, 50)])  # many tiles a block
 def test_pq_score_matches_plain(cuda, nq, n, m):
     luts = torch.from_numpy(_normal(71, nq, m, 16)).to(cuda)
     codes = torch.from_numpy(np.random.default_rng(72).integers(
@@ -308,6 +356,31 @@ def test_pq_score_matches_plain(cuda, nq, n, m):
     torch.cuda.synchronize()
     assert pq_score.launches == n0 + 1
     torch.testing.assert_close(got, ref.pq_score_ref(luts, codes), rtol=1e-5, atol=1e-5)
+
+
+def test_pq_score_widest_m_sums_exactly(cuda):
+    # quarter-integer LUT entries: every partial sum is exact in f32, so
+    # the kernel's in-order sums equal the plain version's bit for bit
+    nq, n, m = 130, 1_000, 363             # the widest m whose ring fits
+    rng = np.random.default_rng(79)
+    luts = torch.from_numpy((rng.integers(-32, 33, (nq, m, 16)) / 4).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, 16, (n, m)).astype(np.uint8))
+    got = pq_score(luts.to(cuda), codes.to(cuda))
+    assert torch.equal(got.cpu(), ref.pq_score_ref(luts, codes))
+
+
+def test_pq_score_repeats_and_takes_any_alignment(cuda):
+    nq, n, m = 70, 20_000, 50
+    luts = torch.from_numpy(_normal(77, nq, m, 16)).to(cuda)
+    table = torch.from_numpy(np.random.default_rng(78).integers(
+        0, 16, (n + 1, m)).astype(np.uint8)).to(cuda)
+    codes = table[1:]                    # 50 bytes past 16-byte alignment
+    got = pq_score(luts, codes)
+    assert torch.equal(pq_score(luts, codes), got)      # two calls, the same bits
+    torch.testing.assert_close(got, ref.pq_score_ref(luts, codes), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="shared memory"):
+        pq_score(torch.zeros((1, 364, 16), device=cuda),
+                 torch.zeros((4, 364), dtype=torch.uint8, device=cuda))
 
 
 def _to(idx, device):
