@@ -15,7 +15,8 @@ just after, and fails if one of its kernels was never launched:
      so 50 PQ subspaces): build_ivf_sharded (SOAR lam=1, f32 rerank, and a
      tree router at the JAX package's defaults: 45 supers, t_route 6) ->
      pack_ivf -> search_jit_batched through the flat router (top_t=40,
-     final_k=10, rerank_budget=256, bq=128), cold then warm. Checks
+     final_k=10, rerank_budget=256, bq=128), cold then warm (QPS from the
+     first warm run, and the median of five warm runs beside it). Checks
      recall@10 >= 0.85 against exact search, one window-scoring launch per
      tile, ids agreeing on >= 99% of slots with the same search through
      the plain probe scorer, and the index's whole (n x 2) assignment
@@ -37,7 +38,39 @@ just after, and fails if one of its kernels was never launched:
      kernels.ops.pq_score, plus the coarse term, best row per point, top-10
      (kernel: pq_score): ids agree on >= 99% of slots with the same scan
      through the plain scorer;
-  7. each kernel against its plain PyTorch version on the paths' own
+  7. tombstones on the card: the main packed table with 20% of each
+     partition's live slots set to -1 in place (the extent kept, sizes the
+     live count), searched flat: no row returns a -1 while its window holds
+     2 * final_k live slots, and ids agree on >= 99% of slots with the same
+     search through the plain probe scorer (kernel: pq_score_probes);
+  8. k-means modes on the first 131,072 rows, c = 2,000: train_kmeans with
+     init="parallel", batch_size=16,384, spherical=True, the full-batch
+     k-means++ baseline, and the baseline with the Lloyd sweep's plain
+     version ("plain Lloyd"); distortion and seconds of each, and the
+     parallel and mini-batch distortion no more than 5% above the
+     baseline's (kernel: Lloyd);
+  9. variant A, the sharded build as the paper and ScaNN serve GloVe:
+     build_ivf_sharded(spill_mode="soar", n_spills=2, lam=1,
+     anisotropic_T=0.2 (ScaNN's anisotropic_quantization_threshold in its
+     ann-benchmarks glove-100-angular config), rerank="int8",
+     pq_subspaces=50), then the flat search cold and warm: build phases,
+     memory_bytes("int8"), recall@10 >= 0.85 beside the main path's, QPS,
+     peak memory; the three columns of every row distinct, each column
+     agreeing on >= 99.9% of rows with assign_shards through the plain vq
+     and soar versions, and the int8 codes and scales of the first 65,536
+     rows equal to the CPU quantization's (kernels: Lloyd, vq_assign,
+     soar_assign, pq_score_probes);
+ 10. variant B, the monolithic build on anisotropic primaries:
+     build_ivf(spill_mode="soar", n_spills=1, anisotropic_T=0.2,
+     rerank="f32", pq_subspaces=50) over all 1,000,000 rows, then the flat
+     search: build phases, recall@10 >= 0.85, QPS, peak memory, and the
+     spill column agreeing on >= 99.9% of rows with soar_assign_ref on the
+     card (kernels: Lloyd, soar_assign, pq_score_probes). Phases 9-10
+     count the calls of the build's plain-torch work (the spill columns
+     after the first, anisotropic_assign, the anisotropic update's normal
+     equations and solve, int8_quantize), which no Pallas kernel computes
+     in the JAX package;
+ 11. each kernel against its plain PyTorch version on the paths' own
      inputs, with its time (CUDA events), the plain version's time and the
      least time the card could take: the larger of bytes / 3.35 TB/s and
      the operations' time, where f32 products (x·cᵀ) count at the TF32
@@ -61,8 +94,12 @@ just after, and fails if one of its kernels was never launched:
      ("parent_ms", null without it); the dense record also gives its
      lookup floor: n * nq * m LUT lookups at 32 four-byte words a clock an
      SM (the 128 bytes an SM's shared memory delivers), at the card's SM
-     count and its maximum SM clock (nvidia-smi);
-  8. the {"kernels": [...]} line, then the device line, last.
+     count and its maximum SM clock (nvidia-smi); then the plain-torch work
+     of phases 9-10 timed the same way at the build's shapes, each beside
+     its calls and its bound (bytes / 3.35 TB/s against f32 operations /
+     67 TFLOP/s), on a "plain work" line. "launches" of a kernel sum every
+     driven path above but the filtered one;
+ 12. the {"kernels": [...]} line, then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package (src/repro).
 """
@@ -74,7 +111,8 @@ import json
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from collections import Counter
+from contextlib import ExitStack, contextmanager
 from pathlib import Path
 
 import torch
@@ -87,6 +125,7 @@ C, M = 2000, 50
 TOP_T, FINAL_K, BUDGET, BQ = 40, 10, 256, 128
 TRAIN_SAMPLE, SHARD = 131_072, 65_536
 SELECTIVITIES = (0.01, 0.001)      # filtered phase: shares of points kept
+ANISO_T = 0.2                      # ScaNN's glove-100-angular anisotropic threshold
 DENSE_ROWS = 1_000_000             # code rows of the dense kernel check
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S = 3.35e12, 67e12, 495e12
 SMEM_WORDS_CLK = 32    # 4-byte words an SM's shared memory delivers a clock (128 B)
@@ -218,7 +257,7 @@ def tile_stages(search, packed, Q, router, reps: int = 10) -> dict:
     timeline, so time the device waits on the host inside a stage counts."""
     from repro_torch.quant.pq import pq_lut
     from repro_torch.utils import topk_first
-    names = ("route", "ids_gather", "window_scoring", "dedup", "rerank")
+    names = ("route", "ids_gather", "window_scoring", "mask", "dedup", "rerank")
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
     total = dict.fromkeys(names, 0.0)
     for r in range(reps + 1):
@@ -228,19 +267,47 @@ def tile_stages(search, packed, Q, router, reps: int = 10) -> dict:
         ids = packed.part_ids[parts].reshape(Q.shape[0], -1)
         ev[2].record()
         approx = search.pq_score_probes(pq_lut(packed.pq, Q), packed.part_codes,
-                                        packed.sizes, parts, psc)
+                                        packed.extent, parts, psc)
         ev[3].record()
-        bi, bv = search.dedup_topk_window(ids, approx, BUDGET, 2)
+        approx = approx.masked_fill_(ids < 0, float("-inf"))
         ev[4].record()
+        bi, bv = search.dedup_topk_window(ids, approx, BUDGET, 2)
+        ev[5].record()
         exact = torch.einsum("qbd,qd->qb", packed.rerank[bi.clamp(min=0).long()], Q)
         exact = torch.where(torch.isfinite(bv), exact, float("-inf"))
         topk_first(exact, FINAL_K)
-        ev[5].record()
+        ev[6].record()
         sync()
         if r:                                   # the first round warms up
             for i, k in enumerate(names):
                 total[k] += ev[i].elapsed_time(ev[i + 1]) / reps
     return total
+
+
+@contextmanager
+def counting(module, name: str, calls: Counter):
+    """Run with `module.name` wrapped so that each call adds one to
+    calls[name]."""
+    fn = getattr(module, name)
+
+    def counted(*a, **k):
+        calls[name] += 1
+        return fn(*a, **k)
+
+    with plain_version(module, name, counted):
+        yield
+
+
+def tombstoned(packed, seed: int, share: float = 0.2):
+    """The packed table with `share` of each partition's live slots set to
+    -1 in place (seeded): the extent stays, sizes become the live count."""
+    ids = packed.part_ids
+    g = torch.Generator().manual_seed(seed)
+    key = torch.where(ids >= 0, torch.rand(ids.shape, generator=g).to(ids.device), 2.0)
+    rank = torch.argsort(torch.argsort(key, dim=1), dim=1)
+    dead = rank < (share * packed.sizes.float()).floor().long()[:, None]
+    ids = torch.where(dead, -1, ids)
+    return packed._replace(part_ids=ids, sizes=(ids >= 0).sum(1).to(torch.int32))
 
 
 def dense_scan(pq_score, luts, Qb, idx, part, k):
@@ -263,10 +330,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
-    from repro_torch.core import (build_ivf_sharded, pack_ivf, recall_at_k,
+    from repro_torch.core import (build_ivf, build_ivf_sharded, pack_ivf, recall_at_k,
                                   router as router_mod, search, search_jit_batched,
                                   true_neighbors)
+    from repro_torch.core import ivf as ivf_mod
+    from repro_torch.core import kmeans as kmeans_mod
     from repro_torch.core.build import assign_shards
+    from repro_torch.core.kmeans import train_kmeans
     from repro_torch.core.router import FlatRouter
     from repro_torch.data.vectors import make_manifold
     from repro_torch.kernels import _build, ops, ref
@@ -274,9 +344,11 @@ def main() -> int:
     from repro_torch.kernels import soar_assign as soar_mod
     from repro_torch.kernels.lloyd import lloyd_sweep
     from repro_torch.kernels.pq_score import pq_score, pq_score_probes
-    from repro_torch.kernels.soar_assign import soar_assign
+    from repro_torch.kernels.soar_assign import soar_assign, spill_columns, unit_residuals
     from repro_torch.kernels.tree_route import tree_route
     from repro_torch.kernels.vq_assign import vq_assign
+    from repro_torch.quant import anisotropic as aniso_mod
+    from repro_torch.quant.int8 import int8_quantize
     from repro_torch.quant.pq import pq_lut
     from repro_torch.utils import set_f32_precision, topk_inner_product
 
@@ -356,6 +428,9 @@ def main() -> int:
     assign_agree = [float((plain_assign[:, j] == idx.assignments[:, j]).float().mean())
                     for j in range(idx.assignments.shape[1])]
     del plain_assign
+    # four more warm searches: the spread of the host-bound search time
+    runs = [times["search_s"]] + [timed(lambda: search_jit_batched(
+        packed, ds.Q, router=flat, **search_kw))[1] for _ in range(4)]
     _, times["spill_assign_warm_s"] = timed(lambda: assign_shards(
         ds.X, idx.centroids, spill_mode="soar", lam=1.0, shard_size=SHARD))
     times["assign_fused_shard_ms"] = time_ms(
@@ -365,7 +440,8 @@ def main() -> int:
     summary = {
         "n": N, "d": D, "nq": NQ, "c": C, "m": M, "top_t": TOP_T,
         "rerank_budget": BUDGET, "bq": BQ, **times, "build_phases_s": phases,
-        "qps": NQ / times["search_s"], "recall_at_10": recall,
+        "qps": NQ / times["search_s"], "search_s_runs": runs,
+        "qps_median": NQ / sorted(runs)[2], "recall_at_10": recall,
         "ids_agree_plain_scorer": agree,
         "assignments_agree_plain_by_column": assign_agree,
         "max_memory_allocated_bytes": peak_mem,
@@ -390,6 +466,8 @@ def main() -> int:
     (tids, tsearch_s), tlaunch = drive(
         wrappers, ("tree_route", "pq_score_probes"),
         lambda: timed(lambda: search_jit_batched(packed, ds.Q, **search_kw)[0]))
+    truns = [tsearch_s] + [timed(lambda: search_jit_batched(packed, ds.Q, **search_kw))[1]
+                           for _ in range(4)]
     trecall = recall_at_k(tids, gt, FINAL_K)
     with plain_version(router_mod, "tree_route",
                        lambda Q, SC, CC, CH, t, **_: ref.tree_route_ref(Q, SC, CC, CH, t)):
@@ -397,7 +475,8 @@ def main() -> int:
     tagree = float((tplain == tids).float().mean())
     tree_summary = {
         "n_super": rt.n_super, "t_route": rt.eff_t_route, "cmax": rt.cmax,
-        "search_s": tsearch_s, "qps": NQ / tsearch_s, "recall_at_10": trecall,
+        "search_s": tsearch_s, "qps": NQ / tsearch_s, "search_s_runs": truns,
+        "qps_median": NQ / sorted(truns)[2], "recall_at_10": trecall,
         "recall_ratio_to_flat": trecall / recall,
         "probe_flops_ratio_to_flat": rt.probe_flops(TOP_T) / flat.probe_flops(TOP_T),
         "ids_agree_plain_route": tagree, "launches": tlaunch,
@@ -449,11 +528,138 @@ def main() -> int:
                 "ids_agree_plain_scorer": dagree, "launches": dlaunch}
     print("dense scan: " + json.dumps(dsummary))
     assert dagree >= 0.99, f"dense ids agree with the plain scorer on {dagree} < 0.99"
-    path_launches = {**{k: launches[k] for k in ("pq_score_probes", "vq_assign",
-                                                   "soar_assign", "lloyd_sweep")},
-                     "tree_route": tlaunch["tree_route"], "pq_score": dlaunch["pq_score"]}
+    path_launches = Counter()
+    for counts in (launches, tlaunch, dlaunch):
+        path_launches.update(counts)
 
-    # 7. each kernel against its plain version, on the paths' inputs
+    # 7. tombstones inside partitions, searched flat on the card
+    tomb = tombstoned(packed, args.seed)
+    (tids_t, tomb_s), tomb_launch = drive(
+        wrappers, ("pq_score_probes",),
+        lambda: timed(lambda: search_jit_batched(tomb, ds.Q, router=flat, **search_kw)[0]))
+    path_launches.update(tomb_launch)
+    with plain_version(search, "pq_score_probes", ref.pq_score_probes_ref):
+        tplain_t, _ = search_jit_batched(tomb, ds.Q, router=flat, **search_kw)
+    live_slots = tomb.sizes[flat.route(ds.Q, TOP_T)[1]].sum(-1)
+    enough = live_slots >= 2 * FINAL_K
+    tomb_summary = {
+        "dead_slots": int((packed.part_ids >= 0).sum() - (tomb.part_ids >= 0).sum()),
+        "slots_past_live_count": int((tomb.extent - tomb.sizes).sum()),
+        "rows_with_2k_live_slots": int(enough.sum()),
+        "minus1_in_those_rows": int((tids_t[enough] < 0).sum()),
+        "ids_agree_plain_scorer": float((tplain_t == tids_t).float().mean()),
+        "recall_at_10_vs_untombstoned_gt": recall_at_k(tids_t, gt, FINAL_K),
+        "search_s": tomb_s, "launches": tomb_launch}
+    print("tombstones: " + json.dumps(tomb_summary))
+    assert tomb_summary["minus1_in_those_rows"] == 0, "a -1 came back while live points remained"
+    assert tomb_summary["ids_agree_plain_scorer"] >= 0.99, \
+        f"tombstoned ids agree with the plain scorer on {tomb_summary['ids_agree_plain_scorer']}"
+    del tomb, tids_t, tplain_t
+
+    # 8. k-means modes on the training sample
+    Xt = ds.X[:TRAIN_SAMPLE].contiguous()
+    modes = {"parallel": dict(init="parallel"), "minibatch": dict(batch_size=16_384),
+             "spherical": dict(spherical=True), "pp": {}}
+    ksummary = {}
+    for name, kw in modes.items():
+        (res, secs), klaunch = drive(wrappers, ("lloyd_sweep",), lambda: timed(
+            lambda: train_kmeans(torch.Generator().manual_seed(args.seed), Xt, C, **kw)))
+        path_launches.update(klaunch)
+        ksummary[name] = {"distortion": float(res.distortion), "seconds": secs,
+                          "sweeps": len(res.history), "launches": klaunch}
+    with plain_version(kmeans_mod, "lloyd_sweep", ref.lloyd_sweep_ref):
+        res, secs = timed(lambda: train_kmeans(torch.Generator().manual_seed(args.seed), Xt, C))
+    ksummary["plain_lloyd"] = {"distortion": float(res.distortion), "seconds": secs,
+                               "sweeps": len(res.history)}
+    print("k-means modes: " + json.dumps(ksummary))
+    for name in ("parallel", "minibatch"):
+        assert ksummary[name]["distortion"] <= 1.05 * ksummary["pp"]["distortion"], \
+            f"{name} k-means distortion more than 5% above the baseline's"
+
+    # 9-10. the variants' builds, with their plain-torch work counted
+    plain_calls: Counter = Counter()
+    counted = ((soar_mod, "spill_columns"), (aniso_mod, "anisotropic_assign"),
+               (aniso_mod, "_anisotropic_update"), (ivf_mod, "int8_quantize"))
+
+    def variant(build):
+        """Build, pack and search twice (cold, warm) → (index, packed, ids,
+        numbers); peak memory over the whole variant."""
+        out = {"build_phases_s": {}}
+        torch.cuda.reset_peak_memory_stats()
+        out["resident_before_bytes"] = torch.cuda.memory_allocated()
+        with ExitStack() as stack:
+            for mod, name in counted:
+                stack.enter_context(counting(mod, name, plain_calls))
+            vidx, out["build_s"] = timed(lambda: build(out["build_phases_s"]))
+        vpacked = pack_ivf(vidx)
+        vflat = FlatRouter(vpacked.centroids)
+        _, out["first_search_s"] = timed(
+            lambda: search_jit_batched(vpacked, ds.Q, router=vflat, **search_kw))
+        (vids, _), out["search_s"] = timed(
+            lambda: search_jit_batched(vpacked, ds.Q, router=vflat, **search_kw))
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["search_s_runs"] = [out["search_s"]] + [timed(lambda: search_jit_batched(
+            vpacked, ds.Q, router=vflat, **search_kw))[1] for _ in range(4)]
+        out["qps"] = NQ / out["search_s"]
+        out["qps_median"] = NQ / sorted(out["search_s_runs"])[2]
+        out["recall_at_10"] = recall_at_k(vids, gt, FINAL_K)
+        out["main_path_recall_at_10"] = recall
+        out["n_assignments"] = vidx.n_assignments
+        return vidx, out
+
+    (aidx, asum), alaunch = drive(
+        wrappers, ("lloyd_sweep", "vq_assign", "soar_assign", "pq_score_probes"),
+        lambda: variant(lambda ph: build_ivf_sharded(
+            torch.Generator().manual_seed(args.seed), ds.X, C, spill_mode="soar",
+            n_spills=2, lam=1.0, anisotropic_T=ANISO_T, rerank="int8", pq_subspaces=M,
+            train_sample=TRAIN_SAMPLE, shard_size=SHARD, timings=ph, device=DEVICE)))
+    path_launches.update(alaunch)
+    a = aidx.assignments
+    srt = torch.sort(a, dim=1).values
+    with plain_version(soar_mod, "vq_assign_prepared",
+                       lambda X, cb: ref.vq_assign_ref(X, cb.C)), \
+            plain_version(soar_mod, "soar_assign_prepared",
+                          lambda X, R, P, cb, lam: ref.soar_assign_ref(X, R, P, cb.C, lam)):
+        aplain = assign_shards(ds.X, aidx.centroids, spill_mode="soar", lam=1.0,
+                               n_spills=2, shard_size=SHARD)
+    qcpu = int8_quantize(ds.X[:SHARD].cpu())
+    asum.update({
+        "memory_bytes_int8": aidx.memory_bytes("int8"),
+        "columns_distinct": bool((srt[:, 1:] != srt[:, :-1]).all()),
+        "assignments_agree_plain_by_column":
+            [float((aplain[:, j] == a[:, j]).float().mean()) for j in range(3)],
+        "int8_equal_cpu_first_rows":
+            bool(torch.equal(aidx.rerank_int8.q[:SHARD].cpu(), qcpu.q)
+                 and torch.equal(aidx.rerank_int8.scale[:SHARD].cpu(), qcpu.scale)),
+        "launches": alaunch})
+    print("variant A: " + json.dumps(asum))
+    assert asum["recall_at_10"] >= 0.85, f"variant A recall@10 {asum['recall_at_10']} < 0.85"
+    assert asum["columns_distinct"], "variant A: a row has two equal columns"
+    assert min(asum["assignments_agree_plain_by_column"]) >= 0.999, \
+        f"variant A columns agree with the plain versions on " \
+        f"{asum['assignments_agree_plain_by_column']} < 0.999"
+    assert asum["int8_equal_cpu_first_rows"], "variant A int8 rows differ from the CPU's"
+    del aidx, aplain, a, srt
+
+    (bidx, bsum), blaunch = drive(
+        wrappers, ("lloyd_sweep", "soar_assign", "pq_score_probes"),
+        lambda: variant(lambda ph: build_ivf(
+            torch.Generator().manual_seed(args.seed), ds.X, C, spill_mode="soar",
+            n_spills=1, anisotropic_T=ANISO_T, rerank="f32", pq_subspaces=M,
+            timings=ph, device=DEVICE)))
+    path_launches.update(blaunch)
+    bprim = bidx.assignments[:, 0].contiguous()
+    bspill = ref.soar_assign_ref(ds.X, unit_residuals(ds.X, bidx.centroids, bprim),
+                                 bprim, bidx.centroids, 1.0)[0]
+    bsum.update({"spill_agree_plain": float((bspill == bidx.assignments[:, 1]).float().mean()),
+                 "launches": blaunch})
+    print("variant B: " + json.dumps(bsum))
+    assert bsum["recall_at_10"] >= 0.85, f"variant B recall@10 {bsum['recall_at_10']} < 0.85"
+    assert bsum["spill_agree_plain"] >= 0.999, \
+        f"variant B spills agree with soar_assign_ref on {bsum['spill_agree_plain']} < 0.999"
+    del bidx, bspill, bprim
+
+    # 11. each kernel against its plain version, on the paths' inputs
     kernels = []
 
     def record(name, source, replaces, err, ms, plain_ms, nbytes, ops_, mm_ops=0.0,
@@ -470,7 +676,7 @@ def main() -> int:
               f"bound {b_ms:.4f} ({b_by}) {extra}")
 
     # every device time below queues each round behind this longer kernel
-    Xt, Cb = ds.X[:TRAIN_SAMPLE].contiguous(), idx.centroids.contiguous()
+    Cb = idx.centroids.contiguous()
     busy = lambda: lloyd_mod.assign_phase(Xt, Cb)   # noqa: E731
     par = parent_build(args.parent.resolve()) if args.parent else None
 
@@ -501,12 +707,12 @@ def main() -> int:
 
     # kernel 2: one bq tile's real probes, read from the packed table
     psc, parts = flat.route(Qb, TOP_T)
-    pargs = (luts, packed.part_codes, packed.sizes, parts, psc)
+    pargs = (luts, packed.part_codes, packed.extent, parts, psc)
     got, want = pq_score_probes(*pargs), ref.pq_score_probes_ref(*pargs)
     fin = torch.isfinite(want)
     assert torch.equal(torch.isinf(got), torch.isinf(want)), "pq_score_probes -inf slots"
     assert torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5), "pq_score_probes"
-    code_bytes = int(packed.sizes[parts].sum()) * M      # the real rows probed
+    code_bytes = int(packed.extent[parts].sum()) * M     # the rows probed
     record("pq_score_probes", "src/repro_torch/csrc/pq_score_probes.cu",
            "src/repro/kernels/pq_score.py:116",
            float((got[fin] - want[fin]).abs().max()),
@@ -653,7 +859,50 @@ def main() -> int:
                  "share": b2[0] / ms2,
                  "max_abs_err": float((g2s[fin2] - w2s[fin2]).abs().max())})
 
-    # 8. result lines
+    # the build's plain-torch work at its shapes: one shard for the spill
+    # columns, the training sample for the anisotropic steps, all rows for
+    # int8
+    plain = []
+
+    def plain_row(name, where, calls, ms, nbytes, ops_, shape, **extra):
+        b_ms, b_by = bound(nbytes, ops_)
+        plain.append({"name": name, "source": where, "calls": calls, "ms": ms,
+                      "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
+                      "shape": shape, **extra})
+
+    n, c, d = Xs.shape[0], Cb.shape[0], Xs.shape[1]
+    prim = ref.vq_assign_ref(Xs, Cb)[0]
+    rh = unit_residuals(Xs, Cb, prim)
+    first = torch.stack([prim, ref.soar_assign_ref(Xs, rh, prim, Cb, 1.0)[0]], 1)
+    plain_row("spill_columns", "src/repro_torch/kernels/soar_assign.py",
+              plain_calls["spill_columns"],
+              time_ms(lambda: spill_columns(Xs, Cb, rh, first, 1.0, 1)),
+              (2 * n * d + c * d) * 4 + 3 * n * 4, 6 * n * c * d + 12 * n * c, [n, c, d, 1])
+    n = Xt.shape[0]
+    eta = aniso_mod.eta_from_threshold(ANISO_T, d)
+    plain_row("anisotropic_assign", "src/repro_torch/quant/anisotropic.py",
+              plain_calls["anisotropic_assign"],
+              time_ms(lambda: aniso_mod.anisotropic_assign(Xt, Cb, eta)),
+              (n * d + c * d) * 4 + n * 4, 4 * n * c * d + 8 * n * c + 4 * n * d, [n, c, d])
+    at = aniso_mod.anisotropic_assign(Xt, Cb, eta)
+    A, bvec, _ = aniso_mod.normal_equations(Xt, at, eta, c)
+    eye = torch.eye(d, device=DEVICE)
+    plain_row("anisotropic_update", "src/repro_torch/quant/anisotropic.py",
+              plain_calls["_anisotropic_update"],
+              time_ms(lambda: aniso_mod._anisotropic_update(Xt, Cb, at, eta)),
+              (n * d + n + 2 * c * d) * 4, 2 * n * d * d + n * d + c * (2 * d ** 3 // 3 + 2 * d * d),
+              [n, c, d],
+              accumulate_ms=time_ms(lambda: aniso_mod.normal_equations(Xt, at, eta, c)),
+              solve_ms=time_ms(lambda: torch.linalg.solve(A + 1e-6 * eye, bvec[..., None])))
+    n = N
+    plain_row("int8_quantize", "src/repro_torch/quant/int8.py", plain_calls["int8_quantize"],
+              time_ms(lambda: int8_quantize(ds.X)), n * d * 5 + n * 4, 5 * n * d, [n, d])
+    for row in plain:
+        print(f"plain {row['name']}: calls {row['calls']} ms {row['ms']:.4f} "
+              f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+    print("plain work: " + json.dumps(plain))
+
+    # 12. result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -2,8 +2,10 @@
 
 `index_from_numpy` takes the fields of a JAX `repro.core.ivf.IVFIndex` as
 numpy arrays (and plain values) and returns the port's `IVFIndex`, so both
-packages can search the same bits. A router travels under the names of the
-JAX package's snapshot codec (`repro/ckpt/index_store.py`).
+packages can search the same bits; `packed_from_numpy` does the same for a
+JAX `repro.core.search.PackedIVF` (a mutable index's packed snapshot
+included). A router travels under the names of the JAX package's snapshot
+codec (`repro/ckpt/index_store.py`).
 """
 from __future__ import annotations
 
@@ -14,11 +16,46 @@ import torch
 
 from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.router import FlatRouter, TreeRouter
+from repro_torch.core.search import PackedIVF
+from repro_torch.quant.int8 import Int8Data
 from repro_torch.quant.pq import PQCodebook
 from repro_torch.utils import Device, resolve_device
 
 FIELDS = ("centroids", "starts", "point_ids", "codes", "pq.centers",
-          "rerank_f32", "assignments", "n_points", "spill_mode", "lam")
+          "assignments", "n_points", "spill_mode", "lam")
+PACKED_FIELDS = ("centroids", "part_ids", "part_codes", "sizes", "pq.centers",
+                 "rerank")
+
+
+def _reader(fields: Mapping[str, object], dev: torch.device):
+    def t(key, dtype):
+        a = fields.get(key)
+        if a is None:
+            return None
+        return torch.from_numpy(np.array(a)).to(device=dev, dtype=dtype)
+    return t
+
+
+def _router(fields: Mapping[str, object], t):
+    """The router stored under `router` (None → none)."""
+    meta = fields.get("router")
+    if meta is None:
+        return None
+    if meta["type"] == "flat":
+        return FlatRouter(t("router.centroids", torch.float32))
+    if meta["type"] == "tree":
+        return TreeRouter(t("router.super_centroids", torch.float32),
+                          t("router.children", torch.int32),
+                          t("router.child_centroids", torch.float32),
+                          t_route=int(meta["t_route"]),
+                          n_partitions=int(meta["n_partitions"]))
+    raise ValueError(f"unknown router type {meta['type']!r}")
+
+
+def _missing(fields: Mapping[str, object], keys) -> None:
+    missing = [k for k in keys if k not in fields]
+    if missing:
+        raise KeyError(f"index fields missing: {missing}")
 
 
 def index_from_numpy(fields: Mapping[str, object], device: Device = None) -> IVFIndex:
@@ -26,46 +63,56 @@ def index_from_numpy(fields: Mapping[str, object], device: Device = None) -> IVF
 
     Keys: centroids (c, d) f32, starts (c+1,) int, point_ids (na,) int,
     codes (na, m) uint8 or None, pq.centers (m, 16, s) f32 or None,
-    rerank_f32 (n, d) f32, assignments (n, a) int, n_points, spill_mode, lam.
+    assignments (n, a) int, n_points, spill_mode, lam, and the rerank rows:
+    rerank_f32 (n, d) f32, or rerank_int8.q (n, d) int8 with
+    rerank_int8.scale (n,) f32.
     Optional: router ({"type": "tree", "t_route", "n_partitions"} with
     router.super_centroids (S, d), router.children (S, cmax),
     router.child_centroids (S, cmax, d); or {"type": "flat"} with
     router.centroids (c, d)).
     """
-    missing = [k for k in FIELDS if k not in fields]
-    if missing:
-        raise KeyError(f"index fields missing: {missing}")
-    dev = resolve_device(device)
-
-    def t(key, dtype):
-        a = fields[key]
-        if a is None:
-            return None
-        return torch.from_numpy(np.array(a)).to(device=dev, dtype=dtype)
-
+    _missing(fields, FIELDS)
+    t = _reader(fields, resolve_device(device))
+    rerank_f32 = t("rerank_f32", torch.float32)
+    rerank_int8 = None
+    if fields.get("rerank_int8.q") is not None:
+        rerank_int8 = Int8Data(t("rerank_int8.q", torch.int8),
+                               t("rerank_int8.scale", torch.float32))
+    if rerank_f32 is None and rerank_int8 is None:
+        raise KeyError("index fields missing: rerank_f32 or rerank_int8.q/.scale")
     centers = t("pq.centers", torch.float32)
-    meta = fields.get("router")
-    if meta is None:
-        router = None
-    elif meta["type"] == "flat":
-        router = FlatRouter(t("router.centroids", torch.float32))
-    elif meta["type"] == "tree":
-        router = TreeRouter(t("router.super_centroids", torch.float32),
-                            t("router.children", torch.int32),
-                            t("router.child_centroids", torch.float32),
-                            t_route=int(meta["t_route"]),
-                            n_partitions=int(meta["n_partitions"]))
-    else:
-        raise ValueError(f"unknown router type {meta['type']!r}")
     return IVFIndex(
         centroids=t("centroids", torch.float32),
         starts=t("starts", torch.int64),
         point_ids=t("point_ids", torch.int32),
         codes=t("codes", torch.uint8),
         pq=PQCodebook(centers) if centers is not None else None,
-        rerank_f32=t("rerank_f32", torch.float32),
+        rerank_int8=rerank_int8,
+        rerank_f32=rerank_f32,
         assignments=t("assignments", torch.int32),
         n_points=int(fields["n_points"]),
         spill_mode=str(fields["spill_mode"]),
         lam=float(fields["lam"]),
-        router=router)
+        router=_router(fields, t))
+
+
+def packed_from_numpy(fields: Mapping[str, object], device: Device = None) -> PackedIVF:
+    """JAX PackedIVF fields → the port's PackedIVF on `device`.
+
+    Keys: centroids (c, d) f32, part_ids (c, pmax) int (-1 at padding and
+    at removed points), part_codes (c, pmax, m) uint8 or None, sizes (c,)
+    int (live ids), pq.centers (m, 16, s) f32 or None, rerank (n, d) f32;
+    optional router as in `index_from_numpy`. The extent of each partition
+    (its last slot holding an id >= 0, plus one) is computed from part_ids.
+    """
+    _missing(fields, PACKED_FIELDS)
+    t = _reader(fields, resolve_device(device))
+    ids = t("part_ids", torch.int32)
+    slot = torch.arange(1, ids.shape[1] + 1, dtype=torch.int32, device=ids.device)
+    extent = torch.where(ids >= 0, slot, 0).amax(dim=1).to(torch.int32)
+    centers = t("pq.centers", torch.float32)
+    return PackedIVF(
+        centroids=t("centroids", torch.float32), part_ids=ids,
+        part_codes=t("part_codes", torch.uint8), sizes=t("sizes", torch.int32),
+        extent=extent, pq=PQCodebook(centers) if centers is not None else None,
+        rerank=t("rerank", torch.float32), router=_router(fields, t))

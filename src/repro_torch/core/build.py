@@ -9,8 +9,10 @@
 
 `codebook=` / `pq=` freeze those stages (the rebuild contract the JAX
 package's mutation-equivalence tests pin). `router=` trains (or carries) a
-probe router over the codebook. The anisotropic VQ option of the JAX
-package is not ported yet.
+probe router over the codebook. `anisotropic_T=` trains a score-aware
+codebook (`quant/anisotropic.py`); as in the JAX package the primaries
+are still the Euclidean argmin here, so anisotropy shapes only the
+centroids. `init=` / `batch_size=` select k-means' flagged modes.
 """
 from __future__ import annotations
 
@@ -18,10 +20,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.ivf import IVFIndex, _phase, finalize_ivf
+from repro_torch.core.ivf import IVFIndex, _phase, finalize_ivf, spill_plan
 from repro_torch.core.kmeans import train_kmeans
 from repro_torch.core.router import as_router
 from repro_torch.kernels.soar_assign import assign_fused
+from repro_torch.quant.anisotropic import anisotropic_kmeans, eta_from_threshold
 from repro_torch.quant.pq import PQCodebook
 from repro_torch.utils import Device, as_tensor, resolve_device
 
@@ -29,29 +32,25 @@ DEFAULT_TRAIN_SAMPLE = 131_072
 DEFAULT_SHARD = 65_536
 
 
-def spill_plan(spill_mode: str, lam: float, n_spills: int):
-    """Canonical (effective lam, effective spill count) per spill mode."""
-    if spill_mode == "none":
-        return 0.0, 0
-    if spill_mode == "naive":
-        return 0.0, 1
-    if spill_mode == "soar":
-        return lam, n_spills
-    raise ValueError(spill_mode)
-
-
 def train_codebook(gen: torch.Generator, X: torch.Tensor, n_partitions: int, *,
                    train_sample: Optional[int] = DEFAULT_TRAIN_SAMPLE,
-                   train_iters: int = 15) -> torch.Tensor:
-    """Train the (to-be-frozen) VQ codebook on a row sample of X."""
-    n = X.shape[0]
+                   train_iters: int = 15, anisotropic_T: float = 0.0,
+                   init: str = "pp", batch_size: Optional[int] = None) -> torch.Tensor:
+    """Train the (to-be-frozen) VQ codebook on a row sample of X: k-means
+    (init / batch_size select its flagged modes), or anisotropic VQ when
+    anisotropic_T > 0 (max(4, train_iters // 3) rounds)."""
+    n, d = X.shape
     if train_sample and n > train_sample:
         sel = torch.randperm(n, generator=gen)[:train_sample]
         Xt = X[sel.to(X.device)].contiguous()
     else:
         Xt = X
-    return train_kmeans(gen, Xt, n_partitions, iters=train_iters,
-                        final_assign=False).centroids
+    if anisotropic_T > 0.0:
+        return anisotropic_kmeans(gen, Xt, n_partitions,
+                                  eta_from_threshold(anisotropic_T, d),
+                                  iters=max(4, train_iters // 3))[0]
+    return train_kmeans(gen, Xt, n_partitions, iters=train_iters, init=init,
+                        batch_size=batch_size, final_assign=False).centroids
 
 
 def assign_shards(X: torch.Tensor, C: torch.Tensor, *, spill_mode: str = "soar",
@@ -77,15 +76,18 @@ def build_ivf_sharded(gen: Optional[torch.Generator], X, n_partitions: int, *,
                       n_spills: int = 1, pq_subspaces: int = 0,
                       rerank: str = "f32", train_iters: int = 15,
                       train_sample: Optional[int] = DEFAULT_TRAIN_SAMPLE,
-                      shard_size: int = DEFAULT_SHARD,
+                      shard_size: int = DEFAULT_SHARD, anisotropic_T: float = 0.0,
                       codebook=None, pq: Optional[PQCodebook] = None,
+                      init: str = "pp", batch_size: Optional[int] = None,
                       timings: Optional[dict] = None,
                       device: Device = None, router=None,
                       router_kw: Optional[dict] = None) -> IVFIndex:
     """Build a SOAR-spilled IVF(-PQ) index of X (numpy array or tensor).
 
     gen: the build's random stream (None → seed 0); the k-means and PQ
-    stages draw from two generators seeded from it. `codebook=` (and
+    stages draw from two generators seeded from it. anisotropic_T, init
+    and batch_size go to `train_codebook`; rerank is "f32" or "int8".
+    `codebook=` (and
     optionally `pq=`) skip training and build against the given frozen
     stages. `router` is None (flat probe, nothing stored), "flat", "tree"
     (`train_tree_router(**router_kw)` over the codebook) or a router
@@ -106,7 +108,8 @@ def build_ivf_sharded(gen: Optional[torch.Generator], X, n_partitions: int, *,
     with _phase(timings, "kmeans", dev):
         if codebook is None:
             C = train_codebook(gkm, X, n_partitions, train_sample=train_sample,
-                               train_iters=train_iters)
+                               train_iters=train_iters, anisotropic_T=anisotropic_T,
+                               init=init, batch_size=batch_size)
         else:
             C = as_tensor(codebook, dev, torch.float32).contiguous()
     with _phase(timings, "spill_assign", dev):

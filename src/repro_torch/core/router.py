@@ -75,8 +75,9 @@ class FlatRouter:
         return FlatRouter(self.centroids.to(device))
 
     def route(self, Q: torch.Tensor, top_t: int):
-        """(nq, d) → (scores (nq, t), parts (nq, t)), score-descending."""
-        return torch.topk(Q @ self.centroids.T, top_t, dim=-1)
+        """(nq, d) → (scores (nq, t), parts (nq, t)), score-descending with
+        ties to the lowest index, as `jax.lax.top_k` gives."""
+        return topk_first(Q @ self.centroids.T, top_t)
 
 
 class TreeRouter:

@@ -27,6 +27,7 @@ import torch
 from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.router import FlatRouter, check_query_dim
 from repro_torch.kernels.pq_score import pq_score_probes
+from repro_torch.quant.int8 import int8_dequantize
 from repro_torch.quant.pq import PQCodebook, pq_lut
 from repro_torch.utils import as_tensor, topk_first
 
@@ -36,9 +37,13 @@ _NEG_INF = float("-inf")
 class PackedIVF(NamedTuple):
     """Dense, padded IVF layout for the fixed-budget search.
 
-    part_ids:   (c, pmax) int32 point ids, -1 padded
+    part_ids:   (c, pmax) int32 point ids, -1 padded; a -1 may also sit
+                inside a partition's extent (a removed point)
     part_codes: (c, pmax, m) uint8 PQ codes (zeros where padded), or None
-    sizes:      (c,) int32
+    sizes:      (c,) int32 live ids per partition (the JAX package's meaning)
+    extent:     (c,) int32 slot extent per partition: its last slot holding
+                an id >= 0, plus one. The probe scorer reads the slots below
+                it, and the search masks what it scored by id.
     rerank:     (n, d) f32
     router:     the index's probe router (core/router.py); None → flat
     """
@@ -46,6 +51,7 @@ class PackedIVF(NamedTuple):
     part_ids: torch.Tensor
     part_codes: Optional[torch.Tensor]
     sizes: torch.Tensor
+    extent: torch.Tensor
     pq: Optional[PQCodebook]
     rerank: torch.Tensor
     router: Optional[object] = None
@@ -55,7 +61,9 @@ def pack_ivf(index: IVFIndex, pmax: Optional[int] = None) -> PackedIVF:
     """Pack an IVFIndex into the dense padded layout (on its device).
 
     pmax caps the partition width (default: the largest partition); an
-    explicit 0 packs all -1 sentinels at width 1.
+    explicit 0 packs all -1 sentinels at width 1. The rerank table is the
+    index's f32 rows, or its int8 rows dequantized. Every partition's slots
+    are live up to its size, so its extent is its size.
     """
     c = index.n_partitions
     dev = index.point_ids.device
@@ -75,9 +83,12 @@ def pack_ivf(index: IVFIndex, pmax: Optional[int] = None) -> PackedIVF:
     ids[part[keep], pos[keep]] = index.point_ids[keep]
     if m:
         codes[part[keep], pos[keep]] = index.codes[keep]
-    return PackedIVF(index.centroids, ids, codes,
-                     sizes.clamp(max=pmax).to(torch.int32), index.pq,
-                     index.rerank_f32, index.router)
+    rerank = index.rerank_f32
+    if rerank is None:
+        rerank = int8_dequantize(index.rerank_int8)
+    sizes = sizes.clamp(max=pmax).to(torch.int32)
+    return PackedIVF(index.centroids, ids, codes, sizes, sizes, index.pq,
+                     rerank, index.router)
 
 
 def dedup_topk_window(ids: torch.Tensor, scores: torch.Tensor, k: int,
@@ -151,10 +162,10 @@ def _search_pass(packed: PackedIVF, Q: torch.Tensor, router, top_t: int,
             surviving = torch.isfinite(dv).sum(-1)
         return di, dv, surviving
     luts = pq_lut(packed.pq, Q)                                   # (nq, m, 16)
-    # PQ score + ⟨q, c⟩, −inf past each partition's size (ids == -1)
-    approx = pq_score_probes(luts, packed.part_codes, packed.sizes, parts, psc)
-    if filter is not None:
-        approx = torch.where(ids >= 0, approx, _NEG_INF)
+    # PQ score + ⟨q, c⟩ up to each partition's extent, then masked by id
+    # (in place: the scorer's output is this pass's own)
+    approx = pq_score_probes(luts, packed.part_codes, packed.extent, parts, psc)
+    approx = approx.masked_fill_(ids < 0, _NEG_INF)
     bi, bv = dedup_topk_window(ids, approx, rerank_budget, multiplicity)
     if filter is not None:
         surviving = torch.isfinite(bv).sum(-1)

@@ -1,12 +1,15 @@
 // PQ scoring of each query's probed partitions, read by probe id:
 //   out[q, j*pmax + i] = (sum_k luts[q, k, codes[parts[q, j], i, k]]) + psc[q, j]
-// for i < sizes[parts[q, j]], and -inf in the padding slots.
+// for i < extent[parts[q, j]], and -inf past it. extent[p] is partition p's
+// slot extent: its last slot holding an id >= 0, plus one. Slots inside it
+// whose id is -1 (a tombstone) are scored like any other; the search masks
+// them by id.
 // Replaces the Pallas kernel src/repro/kernels/pq_score.py::pq_score_window_pallas,
 // together with the window gather, the coarse term and the padding mask
 // that the search wraps around it (repro/core/search.py::_search_pass).
 //
-// Bound: memory. The probed partitions' real rows are read once each
-// (sizes[p] * m bytes, not the pmax-wide padded row, and no gathered
+// Bound: memory. The probed partitions' rows up to their extent are read
+// once each (extent[p] * m bytes, not the pmax-wide padded row, and no gathered
 // window in device memory), the LUTs once per block, the scores written
 // once. One block per (query, group of probes): the query's LUT (m x 16
 // f32) goes to shared memory once. A partition's rows are contiguous in
@@ -55,7 +58,7 @@ __device__ __forceinline__ float score_row(const unsigned char* row, const float
 template <int W>
 __global__ void __launch_bounds__(PR_THREADS)
 pq_score_probes_kernel(const float* __restrict__ luts, const uint8_t* __restrict__ codes,
-                       const int32_t* __restrict__ sizes, const int64_t* __restrict__ parts,
+                       const int32_t* __restrict__ extent, const int64_t* __restrict__ parts,
                        const float* __restrict__ psc, int t, int pmax, int m, int group,
                        long long table_bytes, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -73,7 +76,7 @@ pq_score_probes_kernel(const float* __restrict__ luts, const uint8_t* __restrict
     int items = 0;
     for (int jj = 0; jj < nj; ++jj) {
       const int p = (int)parts[(size_t)q * t + j0 + jj];
-      const int sz = max(0, min(sizes[p], pmax));
+      const int sz = max(0, min(extent[p], pmax));
       part_s[jj] = p;
       size_s[jj] = sz;
       psc_s[jj] = psc[(size_t)q * t + j0 + jj];
@@ -131,7 +134,7 @@ pq_score_probes_kernel(const float* __restrict__ luts, const uint8_t* __restrict
 }
 
 template <int W>
-static int launch_w(const float* luts, const uint8_t* codes, const int32_t* sizes,
+static int launch_w(const float* luts, const uint8_t* codes, const int32_t* extent,
                     const int64_t* parts, const float* psc, int nq, int c, int pmax, int m, int t,
                     float* out, cudaStream_t stream) {
   const size_t smem = (size_t)m * PR_CENTERS * sizeof(float) + 2 * (size_t)pr_chunk_bytes(m);
@@ -146,19 +149,19 @@ static int launch_w(const float* luts, const uint8_t* codes, const int32_t* size
   const int ngroups = (t + group - 1) / group;
   const long long table_bytes = (long long)c * pmax * m;
   pq_score_probes_kernel<W><<<(unsigned)((long long)nq * ngroups), PR_THREADS, smem, stream>>>(
-      luts, codes, sizes, parts, psc, t, pmax, m, group, table_bytes, out);
+      luts, codes, extent, parts, psc, t, pmax, m, group, table_bytes, out);
   return (int)cudaGetLastError();
 }
 
 // luts (nq, m, 16) f32, codes (c, pmax, m) uint8 (each < 16, 16-byte
-// aligned), sizes (c,) int32, parts (nq, t) int64 in [0, c), psc (nq, t)
+// aligned), extent (c,) int32, parts (nq, t) int64 in [0, c), psc (nq, t)
 // f32 -> out (nq, t * pmax) f32.
 extern "C" int pq_score_probes_launch(const float* luts, const uint8_t* codes,
-                                      const int32_t* sizes, const int64_t* parts,
+                                      const int32_t* extent, const int64_t* parts,
                                       const float* psc, int nq, int c, int pmax, int m, int t,
                                       float* out, cudaStream_t stream) {
   if (nq < 1 || c < 1 || pmax < 1 || m < 1 || t < 1) return (int)cudaErrorInvalidValue;
-  if (m % 4 == 0) return launch_w<4>(luts, codes, sizes, parts, psc, nq, c, pmax, m, t, out, stream);
-  if (m % 2 == 0) return launch_w<2>(luts, codes, sizes, parts, psc, nq, c, pmax, m, t, out, stream);
-  return launch_w<1>(luts, codes, sizes, parts, psc, nq, c, pmax, m, t, out, stream);
+  if (m % 4 == 0) return launch_w<4>(luts, codes, extent, parts, psc, nq, c, pmax, m, t, out, stream);
+  if (m % 2 == 0) return launch_w<2>(luts, codes, extent, parts, psc, nq, c, pmax, m, t, out, stream);
+  return launch_w<1>(luts, codes, extent, parts, psc, nq, c, pmax, m, t, out, stream);
 }

@@ -31,44 +31,46 @@ SMEM_LIMIT = 232_448      # bytes of shared memory one block may use on sm_90
 
 
 def pq_score_probes(luts: torch.Tensor, part_codes: torch.Tensor,
-                    sizes: torch.Tensor, parts: torch.Tensor,
+                    extent: torch.Tensor, parts: torch.Tensor,
                     psc: torch.Tensor) -> torch.Tensor:
-    """luts (nq, m, 16) f32, part_codes (c, pmax, m) uint8, sizes (c,)
+    """luts (nq, m, 16) f32, part_codes (c, pmax, m) uint8, extent (c,)
     int32, parts (nq, t) int in [0, c), psc (nq, t) f32 → (nq, t·pmax) f32.
 
     out[q, j·pmax + i] = Σ_k luts[q, k, part_codes[parts[q, j], i, k]]
-    + psc[q, j] for i < sizes[parts[q, j]], −inf in the padding slots;
-    codes must be < 16. CPU tensors take the plain version; CUDA tensors
-    launch the kernel.
+    + psc[q, j] for i < extent[parts[q, j]], −inf past it; codes must be
+    < 16. extent[p] is partition p's slot extent (`PackedIVF.extent`):
+    slots inside it whose id is −1 are scored too, and the search masks
+    them by id. CPU tensors take the plain version; CUDA tensors launch
+    the kernel.
     """
-    args = (luts, part_codes, sizes, parts, psc)
+    args = (luts, part_codes, extent, parts, psc)
     if _build.on_cpu(*args):
         return pq_score_probes_ref(*args)
     _build.require_cuda(*args)
     return _launch_probes(*args)
 
 
-def _launch_probes(luts, part_codes, sizes, parts, psc) -> torch.Tensor:
+def _launch_probes(luts, part_codes, extent, parts, psc) -> torch.Tensor:
     parts = parts.to(torch.int64).contiguous()
     psc = psc.contiguous()      # a router's top-t values may be a strided view
     _build.check(luts, "luts", torch.float32, 3)
     _build.check(part_codes, "part_codes", torch.uint8, 3)
-    _build.check(sizes, "sizes", torch.int32, 1)
+    _build.check(extent, "extent", torch.int32, 1)
     _build.check(psc, "psc", torch.float32, 2)
     nq, m, k = luts.shape
     c, pmax, _ = part_codes.shape
     t = parts.shape[1] if parts.dim() == 2 else -1
-    if (k != 16 or part_codes.shape[2] != m or sizes.shape[0] != c
+    if (k != 16 or part_codes.shape[2] != m or extent.shape[0] != c
             or parts.shape != (nq, t) or psc.shape != (nq, t)):
         raise ValueError(f"shape mismatch: luts {tuple(luts.shape)}, part_codes "
-                         f"{tuple(part_codes.shape)}, sizes {tuple(sizes.shape)}, "
+                         f"{tuple(part_codes.shape)}, extent {tuple(extent.shape)}, "
                          f"parts {tuple(parts.shape)}, psc {tuple(psc.shape)}")
     if part_codes.data_ptr() % 16:
         raise ValueError("part_codes must be 16-byte aligned (a fresh tensor)")
     out = torch.empty((nq, t * pmax), dtype=torch.float32, device=luts.device)
     if out.numel() == 0:
         return out
-    _build.launch("pq_score_probes_launch", luts, part_codes, sizes, parts, psc,
+    _build.launch("pq_score_probes_launch", luts, part_codes, extent, parts, psc,
                   nq, c, pmax, m, t, out)
     pq_score_probes.launches += 1
     return out

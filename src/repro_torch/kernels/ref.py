@@ -57,22 +57,22 @@ def pq_score_window_ref(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor
 
 
 def pq_score_probes_ref(luts: torch.Tensor, part_codes: torch.Tensor,
-                        sizes: torch.Tensor, parts: torch.Tensor,
+                        extent: torch.Tensor, parts: torch.Tensor,
                         psc: torch.Tensor) -> torch.Tensor:
-    """luts (nq, m, 16), part_codes (c, pmax, m), sizes (c,), parts (nq, t),
+    """luts (nq, m, 16), part_codes (c, pmax, m), extent (c,), parts (nq, t),
     psc (nq, t) → (nq, t·pmax).
 
     The search's window scoring as the JAX package runs it: gather each
     query's (t·pmax) window of codes, score it (`pq_score_window_ref`), add
-    the coarse term psc per probe and set the padding slots
-    (i ≥ sizes[parts[q, j]]) to −inf.
+    the coarse term psc per probe and set the slots past each partition's
+    extent (i ≥ extent[parts[q, j]]) to −inf.
     """
     nq, t = parts.shape
     pmax = part_codes.shape[1]
     p = parts.to(torch.int64)
     approx = pq_score_window_ref(luts, part_codes[p].reshape(nq, t * pmax, -1))
     approx = approx + torch.repeat_interleave(psc, pmax, dim=-1)
-    valid = torch.arange(pmax, device=parts.device) < sizes[p][..., None]
+    valid = torch.arange(pmax, device=parts.device) < extent[p][..., None]
     return torch.where(valid.reshape(nq, t * pmax), approx, float("-inf"))
 
 

@@ -28,6 +28,8 @@ from repro_torch.kernels.ref import soar_assign_ref, vq_assign_ref
 from repro_torch.kernels.vq_assign import (PreparedCodebook, prepare_centroids,
                                            vq_assign_prepared)
 
+SPILL_CHUNK = 8192     # rows per step of the plain spill columns
+
 
 def soar_assign(X: torch.Tensor, rhat: torch.Tensor, primary: torch.Tensor,
                 C: torch.Tensor, lam: float = 1.0):
@@ -69,18 +71,59 @@ def soar_assign_prepared(X: torch.Tensor, rhat: torch.Tensor, primary: torch.Ten
 soar_assign.launches = 0
 
 
+def unit_residuals(X: torch.Tensor, C: torch.Tensor, assign: torch.Tensor):
+    """r̂ = (x − c_assign) / ||x − c_assign|| per row (0 where x = c)."""
+    r = X - C[assign.to(torch.int64)]
+    return r / torch.linalg.vector_norm(r, dim=-1, keepdim=True).clamp(min=1e-12)
+
+
+def spill_columns(X: torch.Tensor, C: torch.Tensor, rhat: torch.Tensor,
+                  assigned: torch.Tensor, lam: float, n_more: int,
+                  chunk: int = SPILL_CHUNK) -> torch.Tensor:
+    """Spill columns after the first, in plain torch: no Pallas kernel
+    computes them in the JAX package (`_fused_assign_gemm` is jnp).
+
+    assigned (n, 2) holds the primary and the first spill, rhat (n, d) the
+    unit residual to the primary. Column j ≥ 2 minimizes ||c||² − 2⟨x,c⟩
+    + λ·Σ_{k<j} (⟨r̂_k,x⟩ − ⟨r̂_k,c⟩)² over the centroids no earlier column
+    took (r̂_k the unit residual to column k; the penalty sums in column
+    order), ties to the lowest index, index 0 where every centroid is
+    taken. Per chunk of rows: one x·Cᵀ product and one r̂_k·Cᵀ product per
+    column, no buffer larger than (chunk, c). Returns (n, n_more) int32.
+    """
+    n = X.shape[0]
+    cn = (C * C).sum(-1)
+    out = torch.empty((n, n_more), dtype=torch.int32, device=X.device)
+    for i0 in range(0, n, chunk):
+        xb, rb = X[i0:i0 + chunk], rhat[i0:i0 + chunk]
+        cols = assigned[i0:i0 + chunk].to(torch.int64)
+        base = cn[None, :] - 2.0 * (xb @ C.T)
+        pen = ((rb * xb).sum(-1)[:, None] - rb @ C.T) ** 2
+        used = torch.zeros(base.shape, dtype=torch.bool, device=X.device)
+        used.scatter_(1, cols, True)
+        last = cols[:, -1]
+        for j in range(n_more):
+            rh = unit_residuals(xb, C, last)
+            pen += ((rh * xb).sum(-1)[:, None] - rh @ C.T) ** 2
+            loss = (base + lam * pen).masked_fill_(used, float("inf"))
+            last = loss.argmin(-1)
+            used.scatter_(1, last[:, None], True)
+            out[i0:i0 + xb.shape[0], j] = last.to(torch.int32)
+    return out
+
+
 def assign_fused(X: torch.Tensor, C: torch.Tensor, lam: float = 1.0,
                  n_spills: int = 1) -> torch.Tensor:
-    """Primary + spilled assignment against a frozen codebook.
+    """Primary + spilled assignments against a frozen codebook.
 
     The TPU route of `repro/kernels/soar_assign.py::assign_fused`:
-    n_spills=0 runs the vq kernel; n_spills=1 the vq kernel, the unit
-    residual r̂ in plain torch, then the soar kernel. On the card the
-    codebook is prepared once for both launches. Returns (n, 1 + n_spills)
-    int32, column 0 primary.
+    n_spills=0 runs the vq kernel; n_spills ≥ 1 the vq kernel, the unit
+    residual r̂ in plain torch, then the soar kernel, whose loss is the
+    multi-spill objective's after one spill. On the card the codebook is
+    prepared once for both launches. Columns after the first spill run in
+    plain torch (`spill_columns`). Returns (n, 1 + n_spills) int32, column
+    0 primary.
     """
-    if n_spills > 1:
-        raise NotImplementedError("multi-spill: later slice")
     X = X.to(torch.float32).contiguous()
     C = C.to(torch.float32).contiguous()
     cpu = _build.on_cpu(X, C)
@@ -90,8 +133,10 @@ def assign_fused(X: torch.Tensor, C: torch.Tensor, lam: float = 1.0,
     prim = (vq_assign_ref(X, C) if cpu else vq_assign_prepared(X, cb))[0]
     if n_spills == 0:
         return prim[:, None]
-    r = X - C[prim.to(torch.int64)]
-    rhat = r / torch.linalg.vector_norm(r, dim=-1, keepdim=True).clamp(min=1e-12)
+    rhat = unit_residuals(X, C, prim)
     sec = (soar_assign_ref(X, rhat, prim, C, lam) if cpu
            else soar_assign_prepared(X, rhat, prim, cb, lam))[0]
-    return torch.stack([prim, sec], dim=1)
+    first = torch.stack([prim, sec], dim=1)
+    if n_spills == 1:
+        return first
+    return torch.cat([first, spill_columns(X, C, rhat, first, lam, n_spills - 1)], 1)

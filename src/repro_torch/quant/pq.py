@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.lloyd import batched_inner, lloyd_sweep_batched
+from repro_torch.kernels.ref import pq_score_ref
 
 PQ_KMEANS_CHUNK = 16_384
 PQ_TRAIN_SAMPLE = 32_768
@@ -78,6 +79,29 @@ def train_pq(gen: torch.Generator, X: torch.Tensor, n_subspaces: int,
     return PQCodebook(C)
 
 
+def train_pq_sequential(gen: torch.Generator, X: torch.Tensor, n_subspaces: int,
+                        n_centers: int = 16, iters: int = 8,
+                        sample: int = PQ_TRAIN_SAMPLE,
+                        init_sample: int = _INIT_SAMPLE) -> PQCodebook:
+    """The reference of `train_pq`: m host-looped `train_kmeans` calls, one
+    per subspace, each with a generator seeded from `gen`."""
+    from repro_torch.core.kmeans import train_kmeans
+
+    n, d = X.shape
+    if d % n_subspaces:
+        raise ValueError(f"d={d} is not a multiple of {n_subspaces} subspaces")
+    s = d // n_subspaces
+    X = X.to(torch.float32)
+    if n > sample:
+        X = X[_sample_rows(gen, n, sample).to(X.device)]
+    seeds = torch.randint(0, 2 ** 62, (n_subspaces,), generator=gen).tolist()
+    Xs = X.reshape(X.shape[0], n_subspaces, s)
+    return PQCodebook(torch.stack([
+        train_kmeans(torch.Generator().manual_seed(seed), Xs[:, j].contiguous(),
+                     n_centers, iters=iters, init_sample=init_sample).centroids
+        for j, seed in enumerate(seeds)]))
+
+
 def _encode_block(centers: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
     """(chunk, m, s) residual tile → (chunk, m) uint8 codes.
 
@@ -110,3 +134,23 @@ def pq_lut(cb: PQCodebook, Q: torch.Tensor) -> torch.Tensor:
     m, _, s = cb.centers.shape
     lut = torch.einsum("qms,mks->qmk", Q.reshape(Q.shape[0], m, s), cb.centers)
     return lut.contiguous()     # einsum may return a permuted view
+
+
+def pq_decode(cb: PQCodebook, codes: torch.Tensor) -> torch.Tensor:
+    """(n, m) codes → (n, d) reconstruction, each subspace's center."""
+    m = cb.centers.shape[0]
+    sub = torch.arange(m, device=codes.device)
+    return cb.centers[sub[None, :], codes.to(torch.int64)].reshape(codes.shape[0], -1)
+
+
+def pq_score(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Asymmetric PQ scores of one query: (m, 16) LUT × (n, m) codes → (n,)."""
+    m = lut.shape[0]
+    sub = torch.arange(m, device=codes.device)
+    return lut[sub[None, :], codes.to(torch.int64)].sum(-1)
+
+
+def pq_score_batch(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """(nq, m, 16) LUTs × (n, m) codes → (nq, n) scores, as a LUT gather (the
+    JAX package's one-hot product is a TPU formulation of the same sums)."""
+    return pq_score_ref(luts, codes)

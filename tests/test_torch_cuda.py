@@ -17,8 +17,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.core import (build_ivf_sharded, pack_ivf,  # noqa: E402
+from repro_torch.core import (build_ivf, build_ivf_sharded, pack_ivf,  # noqa: E402
                               recall_at_k, search_jit_batched, true_neighbors)
+from repro_torch.core.kmeans import train_kmeans  # noqa: E402
 from repro_torch.core.router import TreeRouter  # noqa: E402
 from repro_torch.core.soar import naive_spill_assign  # noqa: E402
 from repro_torch.data.vectors import make_manifold  # noqa: E402
@@ -29,6 +30,8 @@ from repro_torch.kernels.pq_score import pq_score, pq_score_probes  # noqa: E402
 from repro_torch.kernels.soar_assign import assign_fused, soar_assign  # noqa: E402
 from repro_torch.kernels.tree_route import tree_route  # noqa: E402
 from repro_torch.kernels.vq_assign import vq_assign  # noqa: E402
+from repro_torch.quant.anisotropic import anisotropic_assign, eta_from_threshold  # noqa: E402
+from repro_torch.quant.int8 import int8_quantize  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -478,3 +481,106 @@ def test_tree_filtered_slice_on_card_matches_cpu(cuda):
     r_card = recall_at_k(search_jit_batched(pack_ivf(card), ds.Q, **kw)[0].cpu(), gt, 10)
     r_cpu = recall_at_k(search_jit_batched(pack_ivf(cpu), ds.Q, **kw)[0], gt, 10)
     assert abs(r_card - r_cpu) <= 0.05, (r_card, r_cpu)
+
+
+# ------------------------------------------------- the rest of the build
+def _columns_distinct(a):
+    srt = torch.sort(a, dim=1).values
+    return bool((srt[:, 1:] != srt[:, :-1]).all())
+
+
+@pytest.mark.parametrize("n_spills", [2, 3])
+def test_assign_fused_multi_spill_on_card_matches_cpu(cuda, n_spills):
+    """Columns 0-1 from the vq and soar kernels, the rest in plain torch
+    on the card, against the same call on the CPU (>= 99.9% per column);
+    20,000 rows span three of the plain columns' 8,192-row chunks."""
+    X, C = _normal(80, 20_000, 100), _normal(81, 300, 100)
+    n0 = (vq_assign.launches, soar_assign.launches)
+    want = assign_fused(torch.from_numpy(X), torch.from_numpy(C), 1.0, n_spills)
+    got = assign_fused(torch.from_numpy(X).to(cuda), torch.from_numpy(C).to(cuda),
+                       1.0, n_spills).cpu()
+    assert (vq_assign.launches, soar_assign.launches) == (n0[0] + 1, n0[1] + 1)
+    assert got.shape == want.shape == (20_000, 1 + n_spills)
+    for j in range(1 + n_spills):
+        assert float((got[:, j] == want[:, j]).float().mean()) >= 0.999
+    assert _columns_distinct(got)
+
+
+def test_anisotropic_assign_and_int8_on_card_match_cpu(cuda):
+    X, C = _normal(82, 30_000, 100), _normal(83, 500, 100)
+    eta = eta_from_threshold(0.2, 100)
+    want = anisotropic_assign(torch.from_numpy(X), torch.from_numpy(C), eta)
+    got = anisotropic_assign(torch.from_numpy(X).to(cuda), torch.from_numpy(C).to(cuda), eta)
+    assert float((got.cpu() == want).float().mean()) >= 0.999
+    wq = int8_quantize(torch.from_numpy(X))
+    gq = int8_quantize(torch.from_numpy(X).to(cuda))
+    assert torch.equal(gq.q.cpu(), wq.q) and torch.equal(gq.scale.cpu(), wq.scale)
+
+
+def test_probe_scorer_reads_to_the_extent_past_tombstones(cuda):
+    """Extents past the live count, with -1 ids inside them: the kernel
+    scores every slot below the extent as the plain version does, and a
+    search over such a table gives the CPU's ids and never a removed id."""
+    ds = make_manifold(0, 20_000, 32, nq=200, device="cpu")
+    idx = build_ivf_sharded(torch.Generator().manual_seed(0), ds.X, 64, pq_subspaces=8,
+                            device="cpu")
+    p = pack_ivf(idx)
+    g = torch.Generator().manual_seed(5)
+    dead = (torch.rand(p.part_ids.shape, generator=g) < 0.2) & (p.part_ids >= 0)
+    ids = torch.where(dead, -1, p.part_ids)
+    live = (ids >= 0).sum(1).to(torch.int32)
+    assert bool((p.extent > live).all())
+    tomb = p._replace(part_ids=ids, sizes=live)
+    on_card = type(tomb)(*(t.to(cuda) if isinstance(t, torch.Tensor) else t for t in tomb))
+    on_card = on_card._replace(pq=type(tomb.pq)(tomb.pq.centers.to(cuda)))
+    luts = torch.from_numpy(_normal(84, 128, 8, 16)).to(cuda)
+    parts = torch.randint(0, 64, (128, 12), generator=g).to(cuda)
+    psc = torch.from_numpy(_normal(85, 128, 12)).to(cuda)
+    args = (luts, on_card.part_codes, on_card.extent, parts, psc)
+    got, want = pq_score_probes(*args), ref.pq_score_probes_ref(*args)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+    kw = dict(top_t=8, final_k=10, rerank_budget=64, bq=64)
+    ids0, _ = search_jit_batched(tomb, ds.Q, **kw)
+    ids1, _ = search_jit_batched(on_card, ds.Q.to(cuda), **kw)
+    assert float((ids1.cpu() == ids0).float().mean()) >= 0.995
+    assert bool((ids1 >= 0).all())                  # every window keeps live points
+    removed = set(p.part_ids[dead].tolist()) - set(ids[ids >= 0].tolist())
+    assert not removed & set(ids1.cpu().flatten().tolist())
+
+
+@pytest.mark.parametrize("T,n_spills,rerank", [(0.0, 2, "int8"), (0.2, 1, "f32")])
+def test_build_ivf_on_card(cuda, T, n_spills, rerank):
+    """The monolithic build on the card, small: the spill kernels ran, the
+    columns are distinct, and recall@10 is within 0.02 of the CPU build's."""
+    ds = make_manifold(1, 20_000, 32, nq=200, device="cpu")
+    kw = dict(spill_mode="soar", n_spills=n_spills, anisotropic_T=T, rerank=rerank,
+              pq_subspaces=8, train_iters=9)
+    n0 = (soar_assign.launches, lloyd_sweep.launches)
+    card = build_ivf(torch.Generator().manual_seed(0), ds.X, 64, device=cuda, **kw)
+    assert soar_assign.launches > n0[0] and lloyd_sweep.launches > n0[1]
+    assert card.assignments.shape == (20_000, 1 + n_spills)
+    assert _columns_distinct(card.assignments)
+    assert (card.rerank_int8 is not None) == (rerank == "int8")
+    cpu = build_ivf(torch.Generator().manual_seed(0), ds.X, 64, device="cpu", **kw)
+    gt = true_neighbors(ds.X, ds.Q, k=10)
+    search = dict(top_t=8, final_k=10, rerank_budget=64, bq=64)
+    r_card = recall_at_k(search_jit_batched(pack_ivf(card), ds.Q, **search)[0].cpu(), gt, 10)
+    r_cpu = recall_at_k(search_jit_batched(pack_ivf(cpu), ds.Q, **search)[0], gt, 10)
+    assert abs(r_card - r_cpu) <= 0.02, (r_card, r_cpu)
+
+
+@pytest.mark.parametrize("mode", [dict(init="parallel"), dict(batch_size=16_384),
+                                  dict(spherical=True)])
+def test_train_kmeans_modes_on_card(cuda, mode):
+    """The flagged k-means modes on the card (the Lloyd kernel in every
+    sweep): distortion within 5% of the same mode on the CPU."""
+    X = make_manifold(2, 40_000, 100, nq=1, device="cpu").X
+    n0 = lloyd_sweep.launches
+    card = train_kmeans(torch.Generator().manual_seed(0), X.to(cuda), 200, iters=8, **mode)
+    assert lloyd_sweep.launches > n0
+    cpu = train_kmeans(torch.Generator().manual_seed(0), X, 200, iters=8, **mode)
+    assert float(card.distortion) <= 1.05 * float(cpu.distortion)
+    if mode.get("spherical"):
+        torch.testing.assert_close(card.centroids.norm(dim=1).cpu(), torch.ones(200))

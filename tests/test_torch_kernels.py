@@ -15,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core.soar import naive_spill_assign as jax_naive_spill  # noqa: E402
 from repro.kernels import ops  # noqa: E402
 from repro.kernels.lloyd import lloyd_sweep_pallas  # noqa: E402
+from repro.kernels.soar_assign import _fused_assign_gemm as jax_fused_gemm  # noqa: E402
 from repro.kernels.soar_assign import assign_fused as jax_assign_fused  # noqa: E402
 
 from repro_torch.kernels import _build, ref  # noqa: E402
@@ -156,8 +157,19 @@ def test_assign_fused_matches_jax(n_spills, lam):
 
 
 def test_assign_fused_multi_spill_is_later_work():
-    with pytest.raises(NotImplementedError, match="multi-spill"):
-        assign_fused(_t(_normal(0, 8, 4)), _t(_normal(1, 5, 4)), n_spills=2)
+    """Multi-spill once raised here as later work; it is now held against
+    JAX's `_fused_assign_gemm`: every column equal on >= 99.9% of rows,
+    the columns of a row distinct."""
+    X, C = _normal(0, 900, 24), _normal(1, 40, 24)
+    for n_spills in (2, 3):
+        want = np.asarray(jax_fused_gemm(jnp.asarray(X), jnp.asarray(C), lam=1.0,
+                                         n_spills=n_spills, chunk=256))
+        got = assign_fused(_t(X), _t(C), lam=1.0, n_spills=n_spills).numpy()
+        assert got.shape == want.shape == (900, 1 + n_spills)
+        for j in range(1 + n_spills):
+            assert _agree(got[:, j], want[:, j]) >= 0.999
+        srt = np.sort(got, axis=1)
+        assert (srt[:, 1:] != srt[:, :-1]).all()
 
 
 # ------------------------------------------------------- kernel 5: Lloyd
