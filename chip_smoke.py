@@ -70,7 +70,29 @@ just after, and fails if one of its kernels was never launched:
      after the first, anisotropic_assign, the anisotropic update's normal
      equations and solve, int8_quantize), which no Pallas kernel computes
      in the JAX package;
- 11. each kernel against its plain PyTorch version on the paths' own
+ 11. serving: the main index of phase 3 wrapped by MutableIVF.from_index
+     behind AnnEngine(top_t=40, rerank_budget=256, bq=128); the 10,000
+     queries cold and warm through search_request (ids equal to phase 4's
+     tree search on >= 99.9% of slots: the same index at the capacity
+     width); ten rounds each hard-removing 1,000 random live ids,
+     re-adding their vectors (new ids), delta-packing and searching one
+     128-query tile, each step's host-clock ms after a synchronise, and
+     the delta pack held bit for bit against a full repack
+     (invalidate_snapshots) in part_ids, part_codes, sizes, extent and the
+     live rerank rows; 10,000 soft removals searched through the standing
+     filter, then harden_soft_deletes and compact (ms). Checks: no removed
+     or soft-removed id ever returned; the last round's re-added vectors
+     find their new id in their own top 10 on >= 90% of rows (top 1
+     printed beside it; under MIPS a larger-norm point may outrank a
+     point's own); rebuild_reference -> pack_ivf -> the same search gives
+     the engine's ids under the id map on >= 99.9% of slots (identity
+     expected: the assignment kernels and the s = 2 PQ encode are
+     row-independent); search_numpy over to_ivf_index() for 1,000 queries
+     (top_t 40, rerank_budget 256) has recall@10 >= 0.85 against exact
+     search of the live rows, with its QPS and agreement with the engine.
+     Prints the phase's peak memory (kernels: vq_assign, soar_assign,
+     tree_route, pq_score_probes);
+ 12. each kernel against its plain PyTorch version on the paths' own
      inputs, with its time (CUDA events), the plain version's time and the
      least time the card could take: the larger of bytes / 3.35 TB/s and
      the operations' time, where f32 products (x·cᵀ) count at the TF32
@@ -91,7 +113,9 @@ just after, and fails if one of its kernels was never launched:
      between them); with --parent DIR (a checkout of the parent commit,
      unpacked beside this one) the parent's route and dense kernels are
      built from DIR and timed on the same inputs in the same way
-     ("parent_ms", null without it); the dense record also gives its
+     ("parent_ms", null without it); the vq and soar records also give
+     the kernel at the online inserts' batch (1,000 rows, "online"); the
+     dense record also gives its
      lookup floor: n * nq * m LUT lookups at 32 four-byte words a clock an
      SM (the 128 bytes an SM's shared memory delivers), at the card's SM
      count and its maximum SM clock (nvidia-smi); then the plain-torch work
@@ -99,7 +123,7 @@ just after, and fails if one of its kernels was never launched:
      its calls and its bound (bytes / 3.35 TB/s against f32 operations /
      67 TFLOP/s), on a "plain work" line. "launches" of a kernel sum every
      driven path above but the filtered one;
- 12. the {"kernels": [...]} line, then the device line, last.
+ 13. the {"kernels": [...]} line, then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package (src/repro).
 """
@@ -125,6 +149,8 @@ C, M = 2000, 50
 TOP_T, FINAL_K, BUDGET, BQ = 40, 10, 256, 128
 TRAIN_SAMPLE, SHARD = 131_072, 65_536
 SELECTIVITIES = (0.01, 0.001)      # filtered phase: shares of points kept
+ROUNDS, CHURN, SOFT = 10, 1000, 10_000  # serving phase: mutation rounds, ids a round, soft removals
+HOST_NQ = 1000                     # serving phase: queries of the host engine
 ANISO_T = 0.2                      # ScaNN's glove-100-angular anisotropic threshold
 DENSE_ROWS = 1_000_000             # code rows of the dense kernel check
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S = 3.35e12, 67e12, 495e12
@@ -337,6 +363,8 @@ def main() -> int:
     from repro_torch.core import kmeans as kmeans_mod
     from repro_torch.core.build import assign_shards
     from repro_torch.core.kmeans import train_kmeans
+    from repro_torch.core.mutable import MutableIVF
+    from repro_torch.core.search import search_numpy
     from repro_torch.core.router import FlatRouter
     from repro_torch.data.vectors import make_manifold
     from repro_torch.kernels import _build, ops, ref
@@ -350,7 +378,9 @@ def main() -> int:
     from repro_torch.quant import anisotropic as aniso_mod
     from repro_torch.quant.int8 import int8_quantize
     from repro_torch.quant.pq import pq_lut
-    from repro_torch.utils import set_f32_precision, topk_inner_product
+    from repro_torch.serve.api import SearchParams
+    from repro_torch.serve.engine import AnnEngine
+    from repro_torch.utils import set_f32_precision, topk_first, topk_inner_product
 
     set_f32_precision()
     wrappers = {"pq_score_probes": pq_score_probes, "vq_assign": vq_assign,
@@ -659,7 +689,206 @@ def main() -> int:
         f"variant B spills agree with soar_assign_ref on {bsum['spill_agree_plain']} < 0.999"
     del bidx, bspill, bprim
 
-    # 11. each kernel against its plain version, on the paths' inputs
+    # 11. serving: the main index behind AnnEngine, mutated online
+    def serving():
+        """Wrap the main index, search, churn it, soft-remove, harden and
+        compact, rebuild, run the host engine → numbers (checks below)."""
+        out = {}
+        torch.cuda.reset_peak_memory_stats()
+        out["resident_before_bytes"] = torch.cuda.memory_allocated()
+        mut, out["wrap_s"] = timed(lambda: MutableIVF.from_index(idx))
+        eng = AnnEngine(mut, top_t=TOP_T, rerank_budget=BUDGET, bq=BQ)
+        Qn = ds.Q.cpu().numpy()
+        out["capacity"] = {"slots": int(mut.part_ids.shape[1]), "pmax": pmax,
+                           "rerank_rows": int(mut.rerank.shape[0])}
+        _, out["first_search_s"] = timed(lambda: eng.search(Qn, k=FINAL_K))
+        r, out["search_s"] = timed(lambda: eng.search_request(Qn, SearchParams(k=FINAL_K)))
+        out["qps"] = NQ / out["search_s"]
+        out["engine_us"] = r.engine_us
+        out["ids_agree_tree_search"] = float((torch.from_numpy(r.ids) == tids.cpu())
+                                             .float().mean())
+        g = torch.Generator().manual_seed(args.seed + 1)
+        dead, rounds = [], []
+        out["returned_removed"] = 0
+
+        def n_dead(ids):
+            """How many of the (numpy) result ids were removed."""
+            return int(torch.isin(torch.from_numpy(ids).long(), torch.cat(dead)).sum())
+
+        def delta_matches_full(delta) -> bool:
+            """The delta pack against a full repack. Its ids, codes and
+            rerank rows are the index's own tensors (a view, the same by
+            construction); what the delta computes — sizes, extent and the
+            pruned router's children — must equal the repack's."""
+            view = all(a.data_ptr() == b.data_ptr() for a, b in (
+                (delta.part_ids, mut.part_ids), (delta.part_codes, mut.part_codes),
+                (delta.rerank, mut.rerank)))
+            mut.invalidate_snapshots()
+            full = mut.pack()
+            return view and full is not delta and all(torch.equal(a, b) for a, b in (
+                (delta.sizes, full.sizes), (delta.extent, full.extent),
+                (delta.router.children, full.router.children)))
+
+        same_assign = delta_equal = via_delta = 0
+        for _ in range(ROUNDS):
+            live = torch.nonzero(mut.alive[:mut.n_total]).reshape(-1)
+            victims = live[torch.randperm(live.numel(), generator=g)[:CHURN].to(DEVICE)]
+            vecs = mut.rerank[victims].clone()
+            before = mut.assignments[victims].clone()
+            t = {}
+            _, t["remove"] = timed(lambda: eng.remove(victims))
+            new, t["add"] = timed(lambda: eng.add(vecs))
+            via_delta += mut._packed is not None and mut._dirty_parts is not None
+            delta, t["pack"] = timed(mut.pack)
+            res, t["search"] = timed(lambda: eng.search_request(
+                Qn[:BQ], SearchParams(k=FINAL_K)))
+            rounds.append({f"{k}_ms": v * 1e3 for k, v in t.items()})
+            dead.append(victims.cpu())
+            newt = torch.from_numpy(new).to(DEVICE).long()
+            same_assign += int((mut.assignments[newt] == before).all(dim=1).sum())
+            delta_equal += int(delta_matches_full(delta))
+            out["returned_removed"] += n_dead(res.ids)
+        out["rounds_ms"] = rounds
+        out["rounds_ms_median"] = {k: sorted(r_[k] for r_ in rounds)[ROUNDS // 2]
+                                   for k in rounds[0]}
+        out["readded_same_assignments_share"] = same_assign / (ROUNDS * CHURN)
+        out["delta_pack_equal_rounds"] = delta_equal
+        out["rounds_through_delta"] = via_delta      # the first grows the rows
+        out["rerank_rows_after_churn"] = int(mut.rerank.shape[0])
+        out["peak_after_rounds_bytes"] = torch.cuda.max_memory_allocated()
+        # the last round's re-added vectors, searched for themselves
+        own, _ = eng.search(vecs.cpu().numpy(), k=FINAL_K)
+        out["readded_in_own_top10"] = float((own == new[:, None]).any(1).mean())
+        out["readded_top1"] = float((own[:, 0] == new).mean())
+        # prune: empty every child of the super most queries rank first, and
+        # one child of the next, so the served router holds a super with no
+        # child left and a -1 inside a row; then re-add them, which un-prunes
+        trained, served = mut.router, mut.pack().router
+        first = torch.bincount((ds.Q @ trained.super_centroids.T).argmax(1),
+                               minlength=trained.n_super)
+        s1, s2 = torch.topk(first, 2).indices.tolist()
+        ch1, ch2 = served.children[s1], served.children[s2]
+        emptied = torch.cat([ch1[ch1 >= 0], ch2[ch2 >= 0][:1]]).long()
+        slots = mut.part_ids[emptied]
+        gone = torch.unique(slots[slots >= 0])
+        gone_vecs, gone_assign = mut.rerank[gone].clone(), mut.assignments[gone].clone()
+        _, out["prune_remove_ms"] = timed(lambda: eng.remove(gone))
+        out["prune_through_delta"] = mut._packed is not None and mut._dirty_parts is not None
+        pruned, out["prune_pack_ms"] = timed(mut.pack)
+        pch = pruned.router.children
+        out["prune"] = {
+            "supers": [s1, s2], "partitions_emptied": int(emptied.numel()),
+            "ids_removed": int(gone.numel()),
+            "children_pruned": int(((pch < 0) & (served.children >= 0)).sum()),
+            "queries_reaching_emptied_super": int(
+                (torch.topk(ds.Q @ trained.super_centroids.T, trained.eff_t_route).indices
+                 == s1).any(1).sum())}
+        out["prune_shape_ok"] = (pruned.router is not served and bool((pch[s1] < 0).all())
+                                 and int((pch[s2] < 0).sum()) == int((ch2 < 0).sum()) + 1)
+        live_parts = (mut.part_ids >= 0).any(dim=1)
+
+        class LiveOnly(type(trained)):
+            """The trained tables' route with dead partitions' candidates
+            at -inf: the tree search restricted to live partitions,
+            reckoned without `pruned`."""
+
+            def route(self, Q, top_t):
+                sc, cand = tree_route(Q, self.super_centroids, self.child_centroids,
+                                      self.children, self.eff_t_route, checked=True)
+                dead_c = (cand >= 0) & ~live_parts[cand.clamp(min=0).long()]
+                v, pos = topk_first(sc.masked_fill(dead_c, float("-inf")),
+                                    min(top_t, sc.shape[-1]))
+                return v, torch.gather(cand, -1, pos).clamp(min=0)
+
+        pr, out["pruned_search_s"] = timed(lambda: eng.search_request(
+            Qn, SearchParams(k=FINAL_K)))
+        lids, _ = search_jit_batched(pruned, ds.Q, router=LiveOnly(
+            trained.super_centroids, trained.children, trained.child_centroids,
+            trained.t_route, trained.n_partitions), **search_kw)
+        out["pruned_ids_agree_live_route"] = float(
+            (torch.from_numpy(pr.ids) == lids.cpu()).float().mean())
+        dead.append(gone.cpu())
+        out["returned_removed"] += n_dead(pr.ids)
+        out["prune_delta_equal"] = delta_matches_full(pruned)
+        back, out["prune_readd_ms"] = timed(lambda: eng.add(gone_vecs))
+        back = torch.from_numpy(back).to(DEVICE).long()
+        out["prune_readd_same_assignments_share"] = float(
+            (mut.assignments[back] == gone_assign).all(dim=1).float().mean())
+        out["unpruned_after_readd"] = torch.equal(mut.pack().router.children,
+                                                  served.children)
+        for k in ("prune_remove_ms", "prune_pack_ms", "prune_readd_ms"):
+            out[k] *= 1e3
+        # soft removal through the standing filter, then harden and compact
+        live = torch.nonzero(mut.alive[:mut.n_total]).reshape(-1)
+        soft = live[torch.randperm(live.numel(), generator=g)[:SOFT].to(DEVICE)]
+        _, out["soft_remove_ms"] = timed(lambda: eng.remove(soft, hard=False))
+        (fids, _), out["filtered_search_s"] = timed(lambda: eng.search(Qn, k=FINAL_K))
+        dead.append(soft.cpu())
+        out["returned_removed"] += n_dead(fids)
+        out["hardened"], out["harden_ms"] = timed(mut.harden_soft_deletes)
+        _, out["compact_ms"] = timed(mut.compact)
+        out["harden_ms"] *= 1e3
+        out["compact_ms"] *= 1e3
+        out["soft_remove_ms"] *= 1e3
+        (eids, _), out["search_after_compact_s"] = timed(lambda: eng.search(Qn, k=FINAL_K))
+        out["returned_removed"] += n_dead(eids)
+        # the rebuilt reference: the live rows from scratch on the frozen stages
+        live = torch.nonzero(mut.alive[:mut.n_total]).reshape(-1)
+        ref_idx, out["rebuild_s"] = timed(lambda: mut.rebuild_reference(
+            torch.Generator().manual_seed(args.seed)))
+        rids, _ = search_jit_batched(pack_ivf(ref_idx), ds.Q, **search_kw)
+        id_map = torch.full((mut.n_total,), -1, dtype=torch.int64, device=DEVICE)
+        id_map[live] = torch.arange(live.numel(), device=DEVICE)
+        e = torch.from_numpy(eids).to(DEVICE).long()
+        mapped = torch.where(e >= 0, id_map[e.clamp(min=0)], -1)
+        out["rebuilt_ids_agree"] = float((mapped == rids.long()).float().mean())
+        del ref_idx, rids
+        # the host engine over the CSR snapshot, against exact search of the live rows
+        csr = mut.to_ivf_index()
+        Qh = ds.Q[:HOST_NQ]
+        _, gidx = topk_inner_product(Qh, mut.rerank[live], FINAL_K, chunk=65_536)
+        hgt = live[gidx.long()].to(torch.int32)
+        host = lambda: search_numpy(csr, Qh, top_t=TOP_T, final_k=FINAL_K,  # noqa: E731
+                                    rerank_budget=BUDGET)
+        _, out["host_first_s"] = timed(host)
+        (hids, hstats), out["host_s"] = timed(host)
+        out["host_qps"] = HOST_NQ / out["host_s"]
+        out["host_recall_at_10"] = recall_at_k(hids, hgt, FINAL_K)
+        out["engine_recall_at_10_same_queries"] = recall_at_k(
+            torch.from_numpy(eids[:HOST_NQ]).to(DEVICE), hgt, FINAL_K)
+        out["host_ids_agree_engine"] = float((hids.cpu() == torch.from_numpy(
+            eids[:HOST_NQ])).float().mean())
+        out["host_mean_points_read"] = float(hstats.points_read.float().mean())
+        out["n_alive"], out["n_total"] = mut.n_alive, mut.n_total
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        return out
+
+    ssum, slaunch = drive(wrappers, ("vq_assign", "soar_assign", "tree_route",
+                                     "pq_score_probes"), serving)
+    path_launches.update(slaunch)
+    ssum["launches"] = slaunch
+    print("serving: " + json.dumps(ssum))
+    assert ssum["returned_removed"] == 0, "a removed id was returned"
+    assert ssum["readded_in_own_top10"] >= 0.9, \
+        f"re-added vectors in their own top 10 on {ssum['readded_in_own_top10']} < 0.9"
+    assert ssum["delta_pack_equal_rounds"] == ROUNDS, "a delta pack differs from the full repack"
+    assert ssum["rounds_through_delta"] >= ROUNDS - 1 and ssum["prune_through_delta"], \
+        "a round's pack did not go through the delta path"
+    assert ssum["prune_shape_ok"], f"the served router is not pruned as expected: {ssum['prune']}"
+    assert ssum["prune"]["queries_reaching_emptied_super"] > 0, "no query reaches the emptied super"
+    assert ssum["pruned_ids_agree_live_route"] >= 0.999, \
+        f"pruned engine ids agree with the live-only tree search on " \
+        f"{ssum['pruned_ids_agree_live_route']} < 0.999"
+    assert ssum["prune_delta_equal"], "the pruned delta pack differs from the full repack"
+    assert ssum["unpruned_after_readd"], "re-adding the emptied partitions left the router pruned"
+    assert ssum["ids_agree_tree_search"] >= 0.999, \
+        f"engine ids agree with the tree search on {ssum['ids_agree_tree_search']} < 0.999"
+    assert ssum["rebuilt_ids_agree"] >= 0.999, \
+        f"rebuilt ids agree with the engine's on {ssum['rebuilt_ids_agree']} < 0.999"
+    assert ssum["host_recall_at_10"] >= 0.85, \
+        f"host engine recall@10 {ssum['host_recall_at_10']} < 0.85"
+
+    # 12. each kernel against its plain version, on the paths' inputs
     kernels = []
 
     def record(name, source, replaces, err, ms, plain_ms, nbytes, ops_, mm_ops=0.0,
@@ -721,9 +950,22 @@ def main() -> int:
            code_bytes + luts.numel() * 4 + parts.numel() * 8 + psc.numel() * 4
            + got.numel() * 4, code_bytes, shape=[BQ, TOP_T, pmax, M],
            probed_code_bytes=code_bytes)
-    # kernels 3 and 4: one assignment shard against the trained codebook
+    # kernels 3 and 4: one assignment shard against the trained codebook,
+    # and the online inserts' batch of CHURN rows (MutableIVF.add)
     Xs = ds.X[:SHARD].contiguous()
     n, c, d = Xs.shape[0], Cb.shape[0], Xs.shape[1]
+    Xo = ds.X[SHARD:SHARD + CHURN].contiguous()
+
+    def online(got, want, fn, plain_fn, nbytes, ops_, mm_ops):
+        """The kernel at the online batch against its plain version."""
+        agree = float((got[0] == want[0]).float().mean())
+        assert agree >= 0.999 and torch.allclose(got[1], want[1], rtol=1e-4, atol=1e-4), \
+            "assignment kernel at the online batch"
+        b_ms, b_by = bound(nbytes, ops_, mm_ops)
+        return {"shape": [CHURN, c, d], "ms": time_ms(fn), "plain_ms": time_ms(plain_fn),
+                "bound_ms": b_ms, "bound_by": b_by, "index_agreement": agree,
+                "max_abs_err": float((got[1] - want[1]).abs().max())}
+
     gi, gv = vq_assign(Xs, Cb)
     wi, wv = ref.vq_assign_ref(Xs, Cb)
     vq_agree = float((gi == wi).float().mean())
@@ -736,7 +978,10 @@ def main() -> int:
            (n * d + c * d) * 4 + n * 8, 0, 2 * n * c * d,
            product_ms=time_ms(lambda: torch.mm(Xs, Cb.T)),
            tile_loop="src/repro_torch/csrc/assign_tc.cuh",
-           index_agreement=vq_agree, shape=[n, c, d])
+           index_agreement=vq_agree, shape=[n, c, d],
+           online=online(vq_assign(Xo, Cb), ref.vq_assign_ref(Xo, Cb),
+                         lambda: vq_assign(Xo, Cb), lambda: ref.vq_assign_ref(Xo, Cb),
+                         (CHURN * d + c * d) * 4 + CHURN * 8, 0, 2 * CHURN * c * d))
 
     r = Xs - Cb[wi.long()]
     rhat = (r / torch.linalg.vector_norm(r, dim=-1, keepdim=True).clamp(min=1e-12)).contiguous()
@@ -745,6 +990,8 @@ def main() -> int:
     soar_agree = float((gi == si).float().mean())
     assert soar_agree >= 0.999 and torch.allclose(gv, sv, rtol=1e-4, atol=1e-4), "soar_assign"
     assert not bool((gi == wi).any()), "soar_assign returned a primary"
+    wo = ref.vq_assign_ref(Xo, Cb)[0]
+    rho = unit_residuals(Xo, Cb, wo).contiguous()
     record("soar_assign", "src/repro_torch/csrc/soar_assign.cu",
            "src/repro/kernels/soar_assign.py:63", float((gv - sv).abs().max()),
            time_ms(lambda: soar_assign(Xs, rhat, wi, Cb, 1.0)),
@@ -752,7 +999,13 @@ def main() -> int:
            (2 * n * d + c * d) * 4 + n * 12, 6 * n * c, 4 * n * c * d,
            product_ms=time_ms(lambda: (torch.mm(Xs, Cb.T), torch.mm(rhat, Cb.T))),
            tile_loop="src/repro_torch/csrc/assign_tc.cuh",
-           index_agreement=soar_agree, shape=[n, c, d])
+           index_agreement=soar_agree, shape=[n, c, d],
+           online=online(soar_assign(Xo, rho, wo, Cb, 1.0),
+                         ref.soar_assign_ref(Xo, rho, wo, Cb, 1.0),
+                         lambda: soar_assign(Xo, rho, wo, Cb, 1.0),
+                         lambda: ref.soar_assign_ref(Xo, rho, wo, Cb, 1.0),
+                         (2 * CHURN * d + c * d) * 4 + CHURN * 12, 6 * CHURN * c,
+                         4 * CHURN * c * d))
 
     # kernel 5: one sweep over a training-sample-sized block
     n = Xt.shape[0]
@@ -902,7 +1155,7 @@ def main() -> int:
               f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
     print("plain work: " + json.dumps(plain))
 
-    # 12. result lines
+    # 13. result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -4,7 +4,9 @@
 numpy arrays (and plain values) and returns the port's `IVFIndex`, so both
 packages can search the same bits; `packed_from_numpy` does the same for a
 JAX `repro.core.search.PackedIVF` (a mutable index's packed snapshot
-included). A router travels under the names of the JAX package's snapshot
+included), and `mutable_from_numpy` for a JAX
+`repro.core.mutable.MutableIVF`'s whole state, so both packages can be
+mutated side by side from the same bits. A router travels under the names of the JAX package's snapshot
 codec (`repro/ckpt/index_store.py`).
 """
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.ivf import IVFIndex
+from repro_torch.core.mutable import MutableIVF
 from repro_torch.core.router import FlatRouter, TreeRouter
 from repro_torch.core.search import PackedIVF
 from repro_torch.quant.int8 import Int8Data
@@ -25,6 +28,10 @@ FIELDS = ("centroids", "starts", "point_ids", "codes", "pq.centers",
           "assignments", "n_points", "spill_mode", "lam")
 PACKED_FIELDS = ("centroids", "part_ids", "part_codes", "sizes", "pq.centers",
                  "rerank")
+MUTABLE_FIELDS = ("centroids", "pq.centers", "part_ids", "part_codes", "sizes",
+                  "rerank", "assignments", "alive", "n_total", "n_dead_slots",
+                  "n_soft_deleted", "spill_mode", "lam", "n_spills",
+                  "compact_threshold")
 
 
 def _reader(fields: Mapping[str, object], dev: torch.device):
@@ -116,3 +123,30 @@ def packed_from_numpy(fields: Mapping[str, object], device: Device = None) -> Pa
         part_codes=t("part_codes", torch.uint8), sizes=t("sizes", torch.int32),
         extent=extent, pq=PQCodebook(centers) if centers is not None else None,
         rerank=t("rerank", torch.float32), router=_router(fields, t))
+
+
+def mutable_from_numpy(fields: Mapping[str, object], device: Device = None) -> MutableIVF:
+    """JAX MutableIVF state → the port's MutableIVF on `device`.
+
+    Keys: centroids (c, d) f32, pq.centers (m, 16, s) f32 or None, part_ids
+    (c, cap) int, part_codes (c, cap, m) uint8 or None, sizes (c,) int (the
+    fill offset), rerank (cap_n, d) f32, assignments (cap_n, a) int, alive
+    (cap_n,) bool, n_total, n_dead_slots, n_soft_deleted, spill_mode, lam,
+    n_spills, compact_threshold; optional router as in `index_from_numpy`.
+    Capacities are kept as they are, so both indexes grow alike.
+    """
+    _missing(fields, MUTABLE_FIELDS)
+    t = _reader(fields, resolve_device(device))
+    centers = t("pq.centers", torch.float32)
+    return MutableIVF(
+        centroids=t("centroids", torch.float32),
+        pq=PQCodebook(centers) if centers is not None else None,
+        spill_mode=str(fields["spill_mode"]), lam=float(fields["lam"]),
+        n_spills=int(fields["n_spills"]),
+        part_ids=t("part_ids", torch.int32), part_codes=t("part_codes", torch.uint8),
+        sizes=t("sizes", torch.int32), rerank=t("rerank", torch.float32),
+        assignments=t("assignments", torch.int32), alive=t("alive", torch.bool),
+        n_total=int(fields["n_total"]), n_dead_slots=int(fields["n_dead_slots"]),
+        n_soft_deleted=int(fields["n_soft_deleted"]),
+        compact_threshold=float(fields["compact_threshold"]),
+        router=_router(fields, t))

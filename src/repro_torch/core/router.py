@@ -34,9 +34,10 @@ def clamp_top_t(top_t: int, n_partitions: int) -> int:
     return max(0, min(int(top_t), int(n_partitions)))
 
 
-def check_query_dim(Q: torch.Tensor, d: int, what: str = "index centroids"):
-    """Clear ValueError when the query dimensionality does not match."""
-    qd = Q.shape[-1] if Q.dim() else None
+def check_query_dim(Q, d: int, what: str = "index centroids"):
+    """Clear ValueError when the query dimensionality does not match.
+    Q is a tensor or a numpy array (the serving edge's `validate_queries`)."""
+    qd = Q.shape[-1] if Q.ndim else None
     if qd != d:
         raise ValueError(f"query feature dim {qd} does not match {what} dim "
                          f"{d} (Q.shape={tuple(Q.shape)})")
@@ -144,6 +145,23 @@ class TreeRouter:
         return TreeRouter(self.super_centroids.to(device), self.children.to(device),
                           self.child_centroids.to(device), self.t_route,
                           self.n_partitions)
+
+    def pruned(self, live) -> "TreeRouter":
+        """The router with every child whose partition holds no live slot
+        set to -1, so probe slots are not spent on empty partitions (the
+        refresh `MutableIVF` runs at snapshot time). `live` is a (c,) bool
+        mask (tensor or array); the work runs on the tables' device and
+        the trained tables stay as they are. Returns `self` when no child
+        changes. A -1 may then sit inside a children row, and a super may
+        keep no child at all: the route scores such slots -inf."""
+        ch = self.children
+        live = torch.as_tensor(live, dtype=torch.bool, device=ch.device)
+        keep = (ch >= 0) & live[ch.clamp(min=0).to(torch.int64)]
+        children = torch.where(keep, ch, -1)
+        if torch.equal(children, ch):
+            return self
+        return TreeRouter(self.super_centroids, children, self.child_centroids,
+                          self.t_route, self.n_partitions)
 
     def route(self, Q: torch.Tensor, top_t: int):
         """Two-level probe: `tree_route` gives the (nq, t_route·cmax)

@@ -1,5 +1,7 @@
-"""Candidate-local, fixed-budget ANN search over a spilled IVF index
-(PyTorch port of the jit path of `repro/core/search.py`).
+"""Candidate-local ANN search over a spilled IVF index (PyTorch port of
+`repro/core/search.py`): the fixed-budget engine (`search_jit`,
+`search_jit_batched`) and the ragged host engine (`search_numpy`, at the
+end of this module).
 
 Pipeline per query tile: router probe top-t (flat: one matmul + top-t;
 tree: the two-level `tree_route` kernel) → each query's own (t·pmax)
@@ -13,6 +15,10 @@ with the database size n.
 A filter is an (n,) uint8 bitmap over point ids, gathered per window;
 with `escalate`, a second pass one router-escalation step up backs rows
 whose first-pass window was thin.
+
+The host engine gathers every probed partition's CSR segment for the
+whole batch, dedups per (query, id) by sorts and reranks; it runs in
+torch on the index's device, query chunks at a time.
 
 Names follow the JAX package so each function's counterpart is easy to
 find; there is no jit here, PyTorch runs eagerly.
@@ -266,3 +272,199 @@ def search_jit_batched(packed: PackedIVF, Q, top_t: int, final_k: int,
                           rerank_budget, multiplicity, filter, escalate, router)
             for i0 in range(0, nq, bq)]
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
+# --------------------------------------------------------------------------
+# The host engine: ragged search over the CSR index
+# --------------------------------------------------------------------------
+
+CAND_CHUNK = 1 << 20    # candidates (query, assignment) gathered per step
+
+
+class SearchStats(NamedTuple):
+    points_read: torch.Tensor         # (nq,) int64 assignments scanned (incl. duplicates)
+    unique_candidates: torch.Tensor   # (nq,) int64
+
+
+def _ragged_gather(starts: torch.Tensor, top_parts: torch.Tensor,
+                   part_scores: torch.Tensor):
+    """Batch-level CSR gather: one flat index vector for every (query,
+    partition) segment of the batch.
+
+    Returns (cand_rows, qidx, seg_score, row_lens): the flat CSR row of
+    each candidate, its query, its partition's router score (the coarse
+    ⟨q, centroid⟩ term the PQ stage adds back) and per-query totals.
+    """
+    nq, t = top_parts.shape
+    p = top_parts.to(torch.int64)
+    seg_starts = starts[p].reshape(-1)                           # (nq*t,)
+    seg_lens = (starts[p + 1] - starts[p]).reshape(-1)
+    offs = torch.cumsum(seg_lens, 0)
+    total = int(offs[-1]) if offs.numel() else 0
+    dev = starts.device
+    cand_rows = (torch.arange(total, device=dev)
+                 + torch.repeat_interleave(seg_starts - (offs - seg_lens), seg_lens,
+                                           output_size=total))
+    row_lens = seg_lens.reshape(nq, t).sum(1)
+    qidx = torch.repeat_interleave(torch.arange(nq, device=dev), row_lens,
+                                   output_size=total)
+    seg_score = torch.repeat_interleave(part_scores.to(torch.float32).reshape(-1),
+                                        seg_lens, output_size=total)
+    return cand_rows, qidx, seg_score, row_lens
+
+
+def _group_ranks(group: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """Rank of each element within its (sorted, contiguous) group."""
+    starts = torch.searchsorted(group, torch.arange(n_groups, device=group.device))
+    return torch.arange(group.shape[0], device=group.device) - starts[group]
+
+
+def _run_starts(order: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """The entries of `order` that start a run of equal key[order]."""
+    key_s = key[order]
+    first = torch.ones_like(key_s, dtype=torch.bool)
+    first[1:] = key_s[1:] != key_s[:-1]
+    return order[first]
+
+
+def _lexsort_desc(val: torch.Tensor, group: torch.Tensor) -> torch.Tensor:
+    """`np.lexsort((-val, group))`: by group ascending, then val descending,
+    then position — a stable descending sort on val, then a stable sort on
+    group."""
+    o1 = torch.sort(val, descending=True, stable=True).indices
+    return o1[torch.sort(group[o1], stable=True).indices]
+
+
+def search_numpy(index: IVFIndex, Q, top_t: int, final_k: int = 10,
+                 rerank_budget: int = 0, filter_mask=None, escalate: bool = True,
+                 router=None):
+    """The host engine (ScaNN's CPU engine shape), in torch on the index's
+    device → (ids (nq, final_k) int32, SearchStats of (nq,) int64 tensors).
+
+    The name is the JAX package's: there the engine runs in numpy on the
+    host. Per pass: the router's probe, one ragged CSR gather of every
+    (query, partition) segment, PQ LUT scores + the coarse term, per-query
+    dedup by (query, id) keeping the best approximate score, the top
+    rerank_budget per query, exact rerank, top final_k. rerank_budget=0
+    (or an index without codes) scores every candidate exactly. Queries
+    are walked in chunks of about CAND_CHUNK candidates; every stage is
+    query-local, so chunking changes no result.
+
+    filter_mask: optional (n_points,) bitmap over point ids; filtered
+    candidates drop at the gather. A short mask zero-pads (ids past it are
+    excluded) and a long one is cut at n_points, unlike `search_jit`'s
+    strict length. With `escalate`, queries whose unique surviving
+    candidates are fewer than the stage budget (rerank_budget with a PQ
+    stage, else final_k, capped at the filter's population) re-probe one
+    router escalation step up, host-driven, until satisfied or the router
+    is exhausted.
+
+    router: the probe router; default the index's own, else the flat probe.
+    Its `route` runs here (ties to the lowest index), where the JAX host
+    engine calls `route_numpy`.
+    """
+    dev = index.centroids.device
+    Q = as_tensor(Q, dev, torch.float32)
+    if router is None:
+        router = index.router or FlatRouter(index.centroids)
+    check_query_dim(Q, index.centroids.shape[1])
+    if Q.shape[0] == 0:
+        z = torch.zeros(0, dtype=torch.int64, device=dev)
+        return (torch.full((0, final_k), -1, dtype=torch.int32, device=dev),
+                SearchStats(z, z))
+    top_t = router.clamp(top_t)
+    fm = None
+    if filter_mask is not None:
+        n = index.n_points
+        mm = as_tensor(filter_mask, dev).reshape(-1)[:n].to(torch.bool)
+        fm = torch.zeros(n, dtype=torch.bool, device=dev)
+        fm[:mm.shape[0]] = mm
+    data = index.rerank_f32
+    if data is None:
+        data = int8_dequantize(index.rerank_int8)
+    out, row_lens, uniq = _search_numpy_pass(index, Q, data, router, top_t,
+                                             final_k, rerank_budget, fm)
+    if fm is not None and escalate:
+        use_pq = index.codes is not None and rerank_budget > 0
+        thresh = min(rerank_budget if use_pq else final_k, int(fm.sum()))
+        r, t = router, top_t
+        thin = torch.nonzero(uniq < thresh).reshape(-1)
+        while thin.numel() and r.can_escalate(t):
+            r, t = r.escalated(t)
+            o2, r2, u2 = _search_numpy_pass(index, Q[thin], data, r, t,
+                                            final_k, rerank_budget, fm)
+            out[thin], row_lens[thin], uniq[thin] = o2, r2, u2
+            thin = thin[u2 < thresh]
+    return out, SearchStats(row_lens, uniq)
+
+
+def _search_numpy_pass(index: IVFIndex, Q: torch.Tensor, data: torch.Tensor,
+                       router, top_t: int, final_k: int, rerank_budget: int,
+                       fm: Optional[torch.Tensor]):
+    """One fixed-top_t pass of the host engine → (out, points_read,
+    unique_candidates), so the escalation loop can splice rows. The
+    route runs on the whole batch; the rest walks chunks of queries of
+    about CAND_CHUNK candidates (at least one query a chunk)."""
+    nq = Q.shape[0]
+    psc, top_parts = router.route(Q, top_t)
+    starts = index.starts
+    p = top_parts.to(torch.int64)
+    row_lens = (starts[p + 1] - starts[p]).sum(1)
+    cum = torch.cumsum(row_lens, 0).cpu().numpy()
+    out = torch.full((nq, final_k), -1, dtype=torch.int32, device=Q.device)
+    uniq = torch.zeros(nq, dtype=torch.int64, device=Q.device)
+    q0 = 0
+    while q0 < nq:
+        base = int(cum[q0 - 1]) if q0 else 0
+        q1 = max(q0 + 1, int(np.searchsorted(cum, base + CAND_CHUNK, side="right")))
+        out[q0:q1], uniq[q0:q1] = _search_numpy_chunk(
+            index, Q[q0:q1], data, psc[q0:q1], top_parts[q0:q1], final_k,
+            rerank_budget, fm)
+        q0 = q1
+    return out, row_lens, uniq
+
+
+def _search_numpy_chunk(index: IVFIndex, Q: torch.Tensor, data: torch.Tensor,
+                        psc: torch.Tensor, top_parts: torch.Tensor, final_k: int,
+                        rerank_budget: int, fm: Optional[torch.Tensor]):
+    """The gather, scoring, dedup and rerank of one chunk of queries →
+    (out (nq, final_k) int32, unique_candidates (nq,) int64)."""
+    nq = Q.shape[0]
+    use_pq = index.codes is not None and rerank_budget > 0
+    cand_rows, qidx, seg_score, _ = _ragged_gather(index.starts, top_parts, psc)
+    cand_ids = index.point_ids[cand_rows].to(torch.int64)
+    if fm is not None:
+        # subset masking at the gather: filtered candidates never reach
+        # scoring, dedup or the rerank budget
+        keep = fm[cand_ids]
+        cand_rows, qidx = cand_rows[keep], qidx[keep]
+        seg_score, cand_ids = seg_score[keep], cand_ids[keep]
+    # composite (query, id) key: one dedup pass for the whole chunk
+    key = qidx * index.n_points + cand_ids
+    if use_pq:
+        luts = pq_lut(index.pq, Q).reshape(-1)                 # (nq·m·16,)
+        codes = index.codes[cand_rows]                         # (total, m)
+        m = codes.shape[1]
+        lut_row = qidx * (m * 16)
+        approx = luts[lut_row + codes[:, 0].to(torch.int64)]
+        for j in range(1, m):   # one gather a subspace, summed in subspace order
+            approx += luts[lut_row + (j * 16) + codes[:, j].to(torch.int64)]
+        approx += seg_score                                    # + ⟨q, centroid⟩
+        # dedup: the best approx score per (query, id)
+        sel = _run_starts(_lexsort_desc(approx, key), key)
+        # per-query budget by approx, descending
+        sel = sel[_lexsort_desc(approx[sel], qidx[sel])]
+        sel = sel[_group_ranks(qidx[sel], nq) < rerank_budget]
+    else:
+        # the first candidate of each (query, id), as np.unique's index
+        sel = _run_starts(torch.sort(key, stable=True).indices, key)
+    qs, ids_sel = qidx[sel], cand_ids[sel]
+    uniq = torch.bincount(qs, minlength=nq)
+    exact = (data[ids_sel] * Q[qs]).sum(1)
+    order = _lexsort_desc(exact, qs)
+    qs, ids_sel = qs[order], ids_sel[order]
+    rank = _group_ranks(qs, nq)
+    top = rank < final_k
+    out = torch.full((nq, final_k), -1, dtype=torch.int32, device=Q.device)
+    out[qs[top], rank[top]] = ids_sel[top].to(torch.int32)
+    return out, uniq

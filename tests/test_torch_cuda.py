@@ -1,8 +1,9 @@
 """The port's CUDA kernels and slices on the card (marker `cuda`).
 
 Each kernel is held against its plain PyTorch version on CUDA tensors,
-and the build + search slice and the tree-routed filtered search on the
-card against the same slices on the CPU (which tests/test_torch_slice.py,
+and the build + search slice, the tree-routed filtered search and the
+serving slice (online inserts, the pruned router, the delta pack, the host
+engine) on the card against the same slices on the CPU (which tests/test_torch_slice.py,
 test_torch_router.py and test_torch_filtered.py hold against the JAX
 package). This
 file imports nothing of JAX, so it runs where only PyTorch is installed:
@@ -20,7 +21,9 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import (build_ivf, build_ivf_sharded, pack_ivf,  # noqa: E402
                               recall_at_k, search_jit_batched, true_neighbors)
 from repro_torch.core.kmeans import train_kmeans  # noqa: E402
+from repro_torch.core.mutable import MutableIVF  # noqa: E402
 from repro_torch.core.router import TreeRouter  # noqa: E402
+from repro_torch.core.search import search_numpy  # noqa: E402
 from repro_torch.core.soar import naive_spill_assign  # noqa: E402
 from repro_torch.data.vectors import make_manifold  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -584,3 +587,148 @@ def test_train_kmeans_modes_on_card(cuda, mode):
     assert float(card.distortion) <= 1.05 * float(cpu.distortion)
     if mode.get("spherical"):
         torch.testing.assert_close(card.centroids.norm(dim=1).cpu(), torch.ones(200))
+
+
+# ------------------------------------------------------------ serving slice
+@pytest.mark.parametrize("n", [1, 7, 1000])
+def test_assign_fused_online_batches_match_plain(cuda, n):
+    """`MutableIVF.add`'s batch sizes: primary and spill through the vq and
+    soar kernels against their plain versions on the same card inputs."""
+    X = torch.from_numpy(_normal(90 + n, n, 100)).to(cuda)
+    C = torch.from_numpy(_normal(91, 2000, 100)).to(cuda)
+    n0 = (vq_assign.launches, soar_assign.launches)
+    got = assign_fused(X, C, 1.0, 1)
+    assert (vq_assign.launches, soar_assign.launches) == (n0[0] + 1, n0[1] + 1)
+    prim = ref.vq_assign_ref(X, C)[0]
+    r = X - C[prim.long()]
+    rhat = r / torch.linalg.vector_norm(r, dim=-1, keepdim=True).clamp(min=1e-12)
+    sec = ref.soar_assign_ref(X, rhat, prim, C, 1.0)[0]
+    want = torch.stack([prim, sec], 1)
+    assert float((got == want).all(dim=1).float().mean()) >= 0.999
+
+
+def test_assign_fused_rows_are_independent_of_the_batch(cuda):
+    """Each row's assignment is the same bits alone, in a 1,000-row batch
+    or inside a 65,536-row shard: what mutated ≡ rebuilt relies on."""
+    X = torch.from_numpy(_normal(92, 65_536, 100)).to(cuda)
+    C = torch.from_numpy(_normal(93, 2000, 100)).to(cuda)
+    full = assign_fused(X, C, 1.0, 1)
+    rows = torch.randperm(65_536, generator=torch.Generator().manual_seed(0))[:1000]
+    rows = rows.to(cuda)
+    assert torch.equal(assign_fused(X[rows].contiguous(), C, 1.0, 1), full[rows])
+    for i in (0, 1, 4097, 65_535):
+        assert torch.equal(assign_fused(X[i:i + 1].contiguous(), C, 1.0, 1), full[i:i + 1])
+
+
+def test_pruned_tree_route_on_card(cuda):
+    """A pruned router (-1 inside children rows, and a super with no child
+    left) through the kernel: equal to tree_route_ref on the pruned tables,
+    and to the unpruned route restricted to the live partitions."""
+    S, cmax, d, tr = 24, 40, 100, 6
+    g = torch.Generator().manual_seed(11)
+    SC = torch.randn((S, d), generator=g)
+    CC = torch.randn((S, cmax, d), generator=g)
+    CH = torch.arange(S * cmax, dtype=torch.int32).reshape(S, cmax)
+    CH[:, -5:] = -1                                  # padding, as training leaves
+    CC[:, -5:] = 0.0
+    c = S * cmax
+    live = torch.rand(c, generator=g) < 0.6
+    Q = torch.randn((256, d), generator=g)
+    # the best super of query 0 keeps no child
+    live[CH[torch.argmax(Q @ SC.T, 1)[0]].clamp(min=0).long()] = False
+    full = TreeRouter(SC.to(cuda), CH.to(cuda), CC.to(cuda), tr, c)
+    pruned = full.pruned(live.to(cuda))
+    assert torch.equal(full.children.cpu(), CH)
+    empty = (pruned.children < 0).all(dim=1)
+    assert bool(empty.any()) and bool(((pruned.children < 0) & (CH.to(cuda) >= 0)).any())
+    Qc = Q.to(cuda)
+    n0 = tree_route.launches
+    gs, gi = tree_route(Qc, pruned.super_centroids, pruned.child_centroids,
+                        pruned.children, tr)
+    assert tree_route.launches == n0 + 1
+    ws, wi = ref.tree_route_ref(Qc, pruned.super_centroids, pruned.child_centroids,
+                                pruned.children, tr)
+    assert torch.equal(gi, wi)
+    assert torch.equal(torch.isinf(gs), torch.isinf(ws))
+    fin = torch.isfinite(ws)
+    torch.testing.assert_close(gs[fin], ws[fin], rtol=1e-4, atol=1e-4)
+    # the unpruned route with dead partitions' candidates at -inf
+    us, ui = tree_route(Qc, SC.to(cuda), CC.to(cuda), CH.to(cuda), tr)
+    dead = (ui >= 0) & ~live.to(cuda)[ui.clamp(min=0).long()]
+    torch.testing.assert_close(gs, us.masked_fill(dead, float("-inf")), rtol=0, atol=0)
+    for top_t in (8, 40):
+        ps, pp = pruned.route(Qc, top_t)
+        assert bool(live.to(cuda)[pp[torch.isfinite(ps)].long()].all())
+
+
+def _card_mutable(cuda, seed=0):
+    ds = make_manifold(seed, 20_000, 32, nq=200, device="cpu")
+    return ds, MutableIVF.build(torch.Generator().manual_seed(seed), ds.X[:15_000], 64,
+                                spill_mode="soar", pq_subspaces=8, router="tree",
+                                device=cuda)
+
+
+def test_delta_pack_equals_full_pack_on_card(cuda):
+    """Add, hard and soft remove on the card, with every child of one super
+    emptied: the delta-packed snapshot is a view of the index's tensors,
+    and its sizes, extent and pruned router equal a full repack's; both
+    search alike."""
+    ds, mut = _card_mutable(cuda)
+    mut.compact_threshold = 1.0          # no compaction: the delta path is under test
+    n0 = (vq_assign.launches, soar_assign.launches)
+    new = mut.add(ds.X[15_000:16_000].to(cuda))
+    assert vq_assign.launches > n0[0] and soar_assign.launches > n0[1]
+    mut.pack()                           # the add grew the rows: a full pack
+    mut.add(ds.X[16_000:16_050].to(cuda))
+    assert mut.remove(new[::4]) == 250
+    assert mut.remove(torch.arange(0, 15_000, 7, device=cuda)) > 0
+    ch = mut.router.children[0]
+    slots = mut.part_ids[ch[ch >= 0].long()]
+    assert mut.remove(torch.unique(slots[slots >= 0])) > 0
+    assert mut.remove(torch.arange(15_000, 15_500, 3, device=cuda), hard=False) > 0
+    assert mut._dirty_parts is not None and bool(mut._dirty_parts.any())
+    delta = mut.pack()
+    for a, b in ((delta.part_ids, mut.part_ids), (delta.part_codes, mut.part_codes),
+                 (delta.rerank, mut.rerank)):
+        assert a.data_ptr() == b.data_ptr()
+    assert (delta.router.children[0] < 0).all() and delta.router is not mut.router
+    kw = dict(top_t=8, final_k=10, rerank_budget=64, bq=64)
+    filt, _ = mut.serving_filter()
+    di, dv = search_jit_batched(delta, ds.Q.to(cuda), filter=filt, **kw)
+    mut.invalidate_snapshots()
+    full = mut.pack()
+    assert full is not delta and full.router is not delta.router
+    for a, b in ((delta.sizes, full.sizes), (delta.extent, full.extent),
+                 (delta.router.children, full.router.children)):
+        assert torch.equal(a, b)
+    fi, fv = search_jit_batched(full, ds.Q.to(cuda), filter=filt, **kw)
+    assert torch.equal(di, fi) and torch.equal(dv, fv)
+
+
+def test_search_numpy_on_card_matches_cpu(cuda):
+    """The host engine over a mutated index's CSR snapshot, on the card
+    (tree route kernel) and on the CPU, with and without a PQ stage and a
+    filter."""
+    ds, mut = _card_mutable(cuda, seed=1)
+    mut.add(ds.X[15_000:].to(cuda))
+    mut.remove(torch.arange(0, 20_000, 5, device=cuda))
+    card = mut.to_ivf_index()
+    cpu = convert.index_from_numpy({
+        "centroids": card.centroids.cpu().numpy(), "starts": card.starts.cpu().numpy(),
+        "point_ids": card.point_ids.cpu().numpy(), "codes": card.codes.cpu().numpy(),
+        "pq.centers": card.pq.centers.cpu().numpy(),
+        "rerank_f32": card.rerank_f32.cpu().numpy(),
+        "assignments": card.assignments.cpu().numpy(), "n_points": card.n_points,
+        "spill_mode": card.spill_mode, "lam": card.lam}, device="cpu")
+    rt = card.router
+    cpu_rt = TreeRouter(rt.super_centroids.cpu(), rt.children.cpu(),
+                        rt.child_centroids.cpu(), rt.t_route, rt.n_partitions)
+    mask = (torch.rand(20_000, generator=torch.Generator().manual_seed(3)) < 0.05)
+    n0 = tree_route.launches
+    for kw in (dict(rerank_budget=64), dict(rerank_budget=0),
+               dict(rerank_budget=64, filter_mask=mask.numpy())):
+        gi, gs = search_numpy(card, ds.Q.to(cuda), top_t=8, final_k=10, **kw)
+        wi, ws = search_numpy(cpu, ds.Q, top_t=8, final_k=10, router=cpu_rt, **kw)
+        assert float((gi.cpu() == wi).float().mean()) >= 0.995
+        assert torch.equal(gs.points_read.cpu(), ws.points_read)
+    assert tree_route.launches > n0
