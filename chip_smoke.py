@@ -92,7 +92,32 @@ just after, and fails if one of its kernels was never launched:
      search of the live rows, with its QPS and agreement with the engine.
      Prints the phase's peak memory (kernels: vq_assign, soar_assign,
      tree_route, pq_score_probes);
- 12. each kernel against its plain PyTorch version on the paths' own
+ 12. paper metrics at the main path's shape: the exact top 100 of the
+     10,000 queries, then KMR curves (kmr_curve) of the main index (SOAR,
+     lam=1) and of build_ivf_sharded(spill_mode="none") and ("naive") on
+     the main index's codebook and PQ (one rank space). Checks: each curve
+     non-decreasing, ending at recall 1.0 and at n_assignments points;
+     naive's and SOAR's recall at every t >= none's; rank_statistics of
+     the first 1,000 queries on the card equal to the same call on CPU
+     copies on >= 99.9% of (query, neighbour) entries. Prints
+     points_to_recall at 0.8 / 0.9 / 0.95 / 0.99 for each index, the
+     score-error and angle correlations of naive and SOAR (pair_stats;
+     the paper's Figs 4, 7, 9), the phase's seconds and peak memory; the
+     two extra builds are freed after it (kernels: vq_assign, soar_assign);
+ 13. durability, from phase 11's engine after its rounds: AnnEngine.save
+     into a temporary directory (bytes, seconds, GB/s); AnnEngine.open on
+     the card equal to the saved engine bit for bit (part_ids,
+     part_codes, sizes, rerank, assignments, alive, centroids, PQ, the
+     counters, wal_seq, the router's tables) and its ids equal on every
+     slot of the 10,000 queries; then a log attached (fsync "always"),
+     three rounds of 1,000 hard removals and re-adds, 1,000 soft removals
+     and harden_soft_deletes; a second engine opened from the snapshot
+     and the log equal to the live one bit for bit, with equal ids on
+     every slot, its replayed adds launching vq_assign and soar_assign;
+     one byte of arrays.bin flipped, after which open raises
+     CorruptSnapshotError. Prints replay seconds and the log's bytes
+     (kernels: vq_assign, soar_assign, tree_route, pq_score_probes);
+ 14. each kernel against its plain PyTorch version on the paths' own
      inputs, with its time (CUDA events), the plain version's time and the
      least time the card could take: the larger of bytes / 3.35 TB/s and
      the operations' time, where f32 products (x·cᵀ) count at the TF32
@@ -123,7 +148,7 @@ just after, and fails if one of its kernels was never launched:
      its calls and its bound (bytes / 3.35 TB/s against f32 operations /
      67 TFLOP/s), on a "plain work" line. "launches" of a kernel sum every
      driven path above but the filtered one;
- 13. the {"kernels": [...]} line, then the device line, last.
+ 15. the {"kernels": [...]} line, then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package (src/repro).
 """
@@ -132,13 +157,17 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from contextlib import ExitStack, contextmanager
 from pathlib import Path
+from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -151,6 +180,9 @@ TRAIN_SAMPLE, SHARD = 131_072, 65_536
 SELECTIVITIES = (0.01, 0.001)      # filtered phase: shares of points kept
 ROUNDS, CHURN, SOFT = 10, 1000, 10_000  # serving phase: mutation rounds, ids a round, soft removals
 HOST_NQ = 1000                     # serving phase: queries of the host engine
+KMR_K, KMR_TARGETS = 100, (0.8, 0.9, 0.95, 0.99)  # paper metrics: neighbours, recall targets
+RANK_NQ = 1000                     # paper metrics: queries whose ranks are checked on the CPU
+WAL_ROUNDS = 3                     # durability: logged rounds of CHURN removals and re-adds
 ANISO_T = 0.2                      # ScaNN's glove-100-angular anisotropic threshold
 DENSE_ROWS = 1_000_000             # code rows of the dense kernel check
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S = 3.35e12, 67e12, 495e12
@@ -356,9 +388,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
-    from repro_torch.core import (build_ivf, build_ivf_sharded, pack_ivf, recall_at_k,
+    from repro_torch import faults
+    from repro_torch.ckpt import CorruptSnapshotError, MutationWAL
+    from repro_torch.core import (build_ivf, build_ivf_sharded, kmr_curve, pack_ivf,
+                                  points_to_recall, rank_statistics, recall_at_k,
                                   router as router_mod, search, search_jit_batched,
                                   true_neighbors)
+    from repro_torch.core.analysis import (angle_correlation, pair_stats,
+                                           score_error_correlation)
     from repro_torch.core import ivf as ivf_mod
     from repro_torch.core import kmeans as kmeans_mod
     from repro_torch.core.build import assign_shards
@@ -861,9 +898,9 @@ def main() -> int:
         out["host_mean_points_read"] = float(hstats.points_read.float().mean())
         out["n_alive"], out["n_total"] = mut.n_alive, mut.n_total
         out["peak_bytes"] = torch.cuda.max_memory_allocated()
-        return out
+        return out, eng
 
-    ssum, slaunch = drive(wrappers, ("vq_assign", "soar_assign", "tree_route",
+    (ssum, eng), slaunch = drive(wrappers, ("vq_assign", "soar_assign", "tree_route",
                                      "pq_score_probes"), serving)
     path_launches.update(slaunch)
     ssum["launches"] = slaunch
@@ -888,7 +925,178 @@ def main() -> int:
     assert ssum["host_recall_at_10"] >= 0.85, \
         f"host engine recall@10 {ssum['host_recall_at_10']} < 0.85"
 
-    # 12. each kernel against its plain version, on the paths' inputs
+    # 12. the paper metrics: KMR curves of three spill modes on one codebook,
+    # rank statistics, the residual correlations
+    def paper_metrics():
+        """KMR curves of the main index and of its codebook's none and naive
+        builds, rank statistics against the CPU, pair statistics → numbers."""
+        out = {}
+        torch.cuda.reset_peak_memory_stats()
+        out["resident_before_bytes"] = torch.cuda.memory_allocated()
+        t_phase = time.perf_counter()
+        tid, out["true_neighbors_s"] = timed(
+            lambda: true_neighbors(ds.X, ds.Q, k=KMR_K, chunk=65_536))
+        builds = {"soar": idx}
+        for mode in ("none", "naive"):
+            builds[mode], out[f"build_{mode}_s"] = timed(lambda: build_ivf_sharded(
+                torch.Generator().manual_seed(args.seed), ds.X, C, spill_mode=mode,
+                pq_subspaces=M, rerank="f32", codebook=idx.centroids, pq=idx.pq,
+                shard_size=SHARD, device=DEVICE))
+        out["primary_equal_main_share"] = {
+            mode: float((builds[mode].assignments[:, 0] == idx.assignments[:, 0])
+                        .float().mean()) for mode in ("none", "naive")}
+        curves, out["curves"] = {}, {}
+        for mode, ix in builds.items():
+            cv, secs = timed(lambda: kmr_curve(ix, ds.Q, tid, k=KMR_K))
+            r, pts = cv.recall_at_t, cv.points_at_t
+            curves[mode] = cv
+            out["curves"][mode] = {
+                "kmr_s": secs, "n_assignments": ix.n_assignments,
+                "points_to_recall": {str(t): points_to_recall(cv, t) for t in KMR_TARGETS},
+                "recall_at_t": {str(t): float(r[t - 1]) for t in (1, 10, TOP_T, 2 * TOP_T)},
+                "non_decreasing": bool(np.all(np.diff(r) >= 0)),
+                "last_recall": float(r[-1]), "last_points": float(pts[-1])}
+        out["spill_dominates_none"] = {
+            mode: bool(np.all(curves[mode].recall_at_t >= curves["none"].recall_at_t))
+            for mode in ("naive", "soar")}
+        # rank statistics of the first queries on the card and on CPU copies
+        nr = RANK_NQ
+        gp, gs = rank_statistics(idx, ds.Q[:nr], tid[:nr])
+        host = SimpleNamespace(centroids=idx.centroids.cpu(),
+                               assignments=idx.assignments.cpu())
+        wp, ws = rank_statistics(host, ds.Q[:nr].cpu(), tid[:nr].cpu())
+        out["rank_stats_agree_cpu"] = [float((gp.cpu() == wp).float().mean()),
+                                       float((gs.cpu() == ws).float().mean())]
+        out["mean_primary_rank"] = float(gp.float().mean())
+        out["mean_spill_rank"] = float(gs.float().mean())
+        out["correlations"] = {}
+        for mode in ("naive", "soar"):
+            st, secs = timed(lambda: pair_stats(ds.X, builds[mode].centroids,
+                                                builds[mode].assignments, ds.Q, tid))
+            out["correlations"][mode] = {
+                "score_error": score_error_correlation(st),
+                "angle": angle_correlation(st), "pair_stats_s": secs}
+            del st
+        del builds["none"], builds["naive"], tid
+        out["phase_s"] = time.perf_counter() - t_phase
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        return out, curves
+
+    (ksum, curves), klaunch = drive(wrappers, ("vq_assign", "soar_assign"), paper_metrics)
+    path_launches.update(klaunch)
+    ksum["launches"] = klaunch
+    torch.cuda.empty_cache()
+    print("paper metrics: " + json.dumps(ksum))
+    for mode, cv in ksum["curves"].items():
+        assert cv["non_decreasing"], f"{mode}: the KMR curve decreases"
+        assert abs(cv["last_recall"] - 1.0) <= 1e-6, f"{mode}: the curve ends at {cv['last_recall']}"
+        assert abs(cv["last_points"] - cv["n_assignments"]) <= 1e-5 * cv["n_assignments"], \
+            f"{mode}: the curve ends at {cv['last_points']} points, not {cv['n_assignments']}"
+    assert all(ksum["spill_dominates_none"].values()), \
+        f"a spilled curve falls below none's: {ksum['spill_dominates_none']}"
+    assert min(ksum["rank_stats_agree_cpu"]) >= 0.999, \
+        f"rank statistics agree with the CPU's on {ksum['rank_stats_agree_cpu']} < 0.999"
+
+    # 13. durability: the serving engine saved, reopened, logged, replayed
+    def durability(tmp):
+        """Save phase 11's engine, open it, log a mutation script, replay
+        it into a second engine, corrupt the snapshot → numbers."""
+        out = {}
+        torch.cuda.reset_peak_memory_stats()
+        out["resident_before_bytes"] = torch.cuda.memory_allocated()
+        mut, Qn = eng.index, ds.Q.cpu().numpy()
+        out["capacity"] = {"slots": int(mut.part_ids.shape[1]),
+                           "rerank_rows": int(mut.rerank.shape[0])}
+        path = os.path.join(tmp, "engine")
+        _, out["save_s"] = timed(lambda: eng.save(path))
+        arrays_bin = os.path.join(path, "index", "arrays.bin")
+        out["snapshot_bytes"] = sum(os.path.getsize(os.path.join(path, "index", f))
+                                    for f in ("arrays.bin", "manifest.json"))
+        out["save_gb_s"] = out["snapshot_bytes"] / out["save_s"] / 1e9
+        opened, out["open_s"] = timed(lambda: AnnEngine.open(path, device=DEVICE))
+        out["open_gb_s"] = out["snapshot_bytes"] / out["open_s"] / 1e9
+        out["opened_equal"] = same_state(opened.index, mut)
+        ids0, _ = eng.search(Qn, k=FINAL_K)
+        (oids, _), out["opened_search_s"] = timed(lambda: opened.search(Qn, k=FINAL_K))
+        out["opened_ids_agree"] = float((oids == ids0).mean())
+        del opened
+        # the log: three rounds of hard removals and re-adds, then soft
+        # removals and harden, each record appended before it applies
+        mut.attach_wal(MutationWAL(os.path.join(path, "wal.log"), fsync="always",
+                                   start_seq=mut.wal_seq))
+        g = torch.Generator().manual_seed(args.seed + 2)
+        steps = []
+        for _ in range(WAL_ROUNDS):
+            live = torch.nonzero(mut.alive[:mut.n_total]).reshape(-1)
+            victims = live[torch.randperm(live.numel(), generator=g)[:CHURN].to(DEVICE)]
+            vecs = mut.rerank[victims].clone()
+            t = {}
+            _, t["remove"] = timed(lambda: eng.remove(victims))
+            _, t["add"] = timed(lambda: eng.add(vecs))
+            steps.append({f"{k}_ms": v * 1e3 for k, v in t.items()})
+        live = torch.nonzero(mut.alive[:mut.n_total]).reshape(-1)
+        soft = live[torch.randperm(live.numel(), generator=g)[:CHURN].to(DEVICE)]
+        _, out["soft_remove_ms"] = timed(lambda: eng.remove(soft, hard=False))
+        _, out["harden_ms"] = timed(mut.harden_soft_deletes)
+        out["soft_remove_ms"] *= 1e3
+        out["harden_ms"] *= 1e3
+        out["logged_rounds_ms"] = steps
+        out["wal_seq"] = mut.wal_seq
+        out["wal_bytes"] = os.path.getsize(os.path.join(path, "wal.log"))
+        # replay: the snapshot plus the log, into a second engine
+        n0 = (vq_assign.launches, soar_assign.launches)
+        replayed, out["replay_open_s"] = timed(lambda: AnnEngine.open(path, device=DEVICE))
+        out["replay_launches"] = {"vq_assign": vq_assign.launches - n0[0],
+                                  "soar_assign": soar_assign.launches - n0[1]}
+        out["replayed_equal"] = same_state(replayed.index, mut)
+        ids1, _ = eng.search(Qn, k=FINAL_K)
+        rids, _ = replayed.search(Qn, k=FINAL_K)
+        out["replayed_ids_agree"] = float((rids == ids1).mean())
+        replayed.index._wal.close()
+        mut._wal.close()
+        mut._wal = None
+        del replayed
+        # one flipped byte of arrays.bin: the next open must refuse it
+        faults.flip_byte(arrays_bin, os.path.getsize(arrays_bin) // 2)
+        try:
+            AnnEngine.open(path, device=DEVICE)
+            out["corrupt_open_raised"] = False
+        except CorruptSnapshotError:
+            out["corrupt_open_raised"] = True
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        return out
+
+    def same_state(a, b) -> bool:
+        """Two MutableIVFs equal bit for bit: state tensors, counters,
+        wal_seq and the router's trained tables."""
+        tensors = all(torch.equal(getattr(a, k), getattr(b, k)) for k in (
+            "centroids", "part_ids", "part_codes", "sizes", "rerank", "assignments",
+            "alive")) and torch.equal(a.pq.centers, b.pq.centers)
+        router = all(torch.equal(getattr(a.router, k), getattr(b.router, k)) for k in (
+            "super_centroids", "children", "child_centroids"))
+        counts = all(getattr(a, k) == getattr(b, k) for k in (
+            "n_total", "n_dead_slots", "n_soft_deleted", "wal_seq"))
+        return tensors and router and counts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dsum, dlaunch = drive(wrappers, ("vq_assign", "soar_assign", "tree_route",
+                                         "pq_score_probes"), lambda: durability(tmp))
+    path_launches.update(dlaunch)
+    dsum["launches"] = dlaunch
+    print("durability: " + json.dumps(dsum))
+    assert dsum["opened_equal"], "the opened engine differs from the saved one"
+    assert dsum["opened_ids_agree"] == 1.0, \
+        f"the opened engine's ids agree on {dsum['opened_ids_agree']} < 1.0"
+    assert dsum["wal_seq"] == 2 * WAL_ROUNDS + 2, f"wal_seq {dsum['wal_seq']}"
+    assert dsum["replayed_equal"], "the replayed engine differs from the live one"
+    assert dsum["replayed_ids_agree"] == 1.0, \
+        f"the replayed engine's ids agree on {dsum['replayed_ids_agree']} < 1.0"
+    assert min(dsum["replay_launches"].values()) > 0, \
+        f"the replayed adds did not launch the assignment kernels: {dsum['replay_launches']}"
+    assert dsum["corrupt_open_raised"], "a flipped byte of arrays.bin opened without an error"
+    del eng
+
+    # 14. each kernel against its plain version, on the paths' inputs
     kernels = []
 
     def record(name, source, replaces, err, ms, plain_ms, nbytes, ops_, mm_ops=0.0,
@@ -1155,7 +1363,7 @@ def main() -> int:
               f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
     print("plain work: " + json.dumps(plain))
 
-    # 13. result lines
+    # 15. result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

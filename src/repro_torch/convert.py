@@ -132,8 +132,9 @@ def mutable_from_numpy(fields: Mapping[str, object], device: Device = None) -> M
     (c, cap) int, part_codes (c, cap, m) uint8 or None, sizes (c,) int (the
     fill offset), rerank (cap_n, d) f32, assignments (cap_n, a) int, alive
     (cap_n,) bool, n_total, n_dead_slots, n_soft_deleted, spill_mode, lam,
-    n_spills, compact_threshold; optional router as in `index_from_numpy`.
-    Capacities are kept as they are, so both indexes grow alike.
+    n_spills, compact_threshold; optional wal_seq (0 when absent) and router
+    as in `index_from_numpy`. Capacities are kept as they are, so both
+    indexes grow alike.
     """
     _missing(fields, MUTABLE_FIELDS)
     t = _reader(fields, resolve_device(device))
@@ -149,4 +150,4 @@ def mutable_from_numpy(fields: Mapping[str, object], device: Device = None) -> M
         n_total=int(fields["n_total"]), n_dead_slots=int(fields["n_dead_slots"]),
         n_soft_deleted=int(fields["n_soft_deleted"]),
         compact_threshold=float(fields["compact_threshold"]),
-        router=_router(fields, t))
+        router=_router(fields, t), wal_seq=int(fields.get("wal_seq", 0)))

@@ -32,19 +32,26 @@ equals a from-scratch build of its live state against the same frozen
 stages — is tests/test_torch_serve.py's, as tests/test_mutable.py pins it
 for the JAX package.
 
-Mutations are shaped as the JAX package's, so a write-ahead log can
-replay them later through the same calls (`add`, `remove`,
-`harden_soft_deletes`, `_compact_impl`); the log itself is not ported yet.
+Durability (DESIGN.md §3.11): with a `MutationWAL` attached
+(`attach_wal`), every mutation appends one record, the JAX package's
+record byte for byte, BEFORE it applies, and `replay_record` applies a
+logged record through the same calls (`add`, `remove`,
+`harden_soft_deletes`, `_compact_impl`), so a snapshot plus its log
+reopens to the live state bit for bit. Logging copies the batch to the
+host; with no log attached nothing is copied.
 """
 from __future__ import annotations
 
 import math
+import os
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
 
+from repro_torch.ckpt.wal import (REC_ADD, REC_COMPACT, REC_HARDEN, REC_REMOVE,
+                                  read_records)
 from repro_torch.core.build import build_ivf_sharded, spill_plan
 from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.search import PackedIVF
@@ -145,6 +152,12 @@ class MutableIVF:
     # serving-router cache, keyed by the live-partition mask
     _router_dev: Optional[object] = field(default=None, repr=False)
     _router_key: Optional[torch.Tensor] = field(default=None, repr=False)
+    # durability: the sequence number of the last mutation this state
+    # covers (a snapshot stores it; replay skips records at or below it),
+    # and the attached log, which gets each mutation's record first
+    wal_seq: int = 0
+    _wal: Optional[object] = field(default=None, repr=False)
+    _replaying: bool = field(default=False, repr=False)
 
     # ------------------------------------------------------- constructors
     @classmethod
@@ -233,6 +246,59 @@ class MutableIVF:
             return
         self._dirty_parts[parts] = True
 
+    # ---------------------------------------------------------- durability
+    def attach_wal(self, wal, replay: bool = True) -> int:
+        """Attach a MutationWAL (ckpt/wal.py): every later mutation appends
+        one record before it applies. With `replay` (default), the log's
+        committed records with seq > `wal_seq` are applied first — the
+        open-after-crash path (snapshot + log → the live state). Returns
+        how many records were replayed."""
+        n = 0
+        if replay and os.path.exists(wal.path):
+            for seq, rtype, meta, arrays in read_records(wal.path):
+                n += self.replay_record(seq, rtype, meta, arrays)
+        self._wal = wal
+        return n
+
+    def replay_record(self, seq: int, rtype: int, meta: dict,
+                      arrays: dict) -> bool:
+        """Apply one log record if it postdates this state (seq >
+        wal_seq), through the same calls that logged it: their
+        determinism (frozen-codebook assignment, stable sorts) makes
+        recovery bit for bit."""
+        from repro_torch.ckpt.index_store import CorruptSnapshotError
+        if seq <= self.wal_seq:
+            return False               # already folded into the snapshot
+        self._replaying = True
+        try:
+            if rtype == REC_ADD:
+                self.add(arrays["x"])
+            elif rtype == REC_REMOVE:
+                self.remove(arrays["ids"], hard=bool(meta["hard"]))
+            elif rtype == REC_HARDEN:
+                self.harden_soft_deletes()
+            elif rtype == REC_COMPACT:
+                self._compact_impl()
+            else:
+                raise CorruptSnapshotError(
+                    f"unknown WAL record type {rtype} (seq {seq})")
+        finally:
+            self._replaying = False
+        self.wal_seq = seq
+        return True
+
+    def _log(self, rtype: int, meta: Optional[dict] = None,
+             arrays: Optional[dict] = None):
+        """Write-ahead: append the record (durably, per the log's fsync
+        policy) BEFORE the mutation applies; tensors are copied to the
+        host only here, when a log is attached. A crash after the append
+        recovers to the post-mutation state by replay; a crash during it
+        leaves a torn record that recovery drops."""
+        if self._wal is None or self._replaying:
+            return
+        host = {k: v.cpu().numpy() for k, v in (arrays or {}).items()}
+        self.wal_seq = self._wal.append(rtype, meta, host)
+
     # ------------------------------------------------------------ mutation
     def add(self, X_new) -> torch.Tensor:
         """Insert a batch of vectors (numpy array or tensor); returns their
@@ -252,6 +318,7 @@ class MutableIVF:
         if b == 0:
             return torch.empty(0, dtype=torch.int32, device=dev)
         X_new = X_new.contiguous()
+        self._log(REC_ADD, arrays={"x": X_new})
         eff_lam, eff_spills = spill_plan(self.spill_mode, self.lam, self.n_spills)
         A = assign_fused(X_new, self.centroids, lam=eff_lam, n_spills=eff_spills)
         a = A.shape[1]
@@ -323,6 +390,7 @@ class MutableIVF:
         ids = ids[self.alive[ids]]
         if ids.numel() == 0:
             return 0
+        self._log(REC_REMOVE, {"hard": bool(hard)}, {"ids": ids})
         self._alive_epoch += 1
         self.alive[ids] = False
         if not hard:
@@ -345,6 +413,8 @@ class MutableIVF:
         self.assignments[ids] = -1
         self._mark_dirty(rows)
         if self.dead_fraction > self.compact_threshold:
+            # implied by the remove / harden record already logged: a
+            # record of its own would compact twice on replay
             self._compact_impl()
 
     def compact(self):
@@ -353,6 +423,7 @@ class MutableIVF:
         A stable sort of each row's hole mask: survivors keep their slot
         order (hence the search's tie order); point ids do not change.
         """
+        self._log(REC_COMPACT)
         self._compact_impl()
 
     def _compact_impl(self):
@@ -370,6 +441,7 @@ class MutableIVF:
     def harden_soft_deletes(self) -> int:
         """Turn soft tombstones (alive False, slots intact) into hard ones
         (slots -1) in one batch; returns how many. May compact."""
+        self._log(REC_HARDEN)
         dead = torch.nonzero(~self.alive[:self.n_total]
                              & (self.assignments[:self.n_total, 0] >= 0)).reshape(-1)
         self.n_soft_deleted = 0

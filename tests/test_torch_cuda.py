@@ -3,9 +3,10 @@
 Each kernel is held against its plain PyTorch version on CUDA tensors,
 and the build + search slice, the tree-routed filtered search and the
 serving slice (online inserts, the pruned router, the delta pack, the host
-engine) on the card against the same slices on the CPU (which tests/test_torch_slice.py,
-test_torch_router.py and test_torch_filtered.py hold against the JAX
-package). This
+engine), snapshots and log replay onto the card, and the KMR curve on the
+card against the same slices on the CPU (which tests/test_torch_slice.py,
+test_torch_router.py, test_torch_filtered.py, test_torch_durability.py
+and test_torch_kmr.py hold against the JAX package). This
 file imports nothing of JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -18,8 +19,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.core import (build_ivf, build_ivf_sharded, pack_ivf,  # noqa: E402
-                              recall_at_k, search_jit_batched, true_neighbors)
+from repro_torch.ckpt import load_snapshot, save_snapshot  # noqa: E402
+from repro_torch.core import (build_ivf, build_ivf_sharded, kmr_curve,  # noqa: E402
+                              pack_ivf, rank_statistics, recall_at_k,
+                              search_jit_batched, true_neighbors)
 from repro_torch.core.kmeans import train_kmeans  # noqa: E402
 from repro_torch.core.mutable import MutableIVF  # noqa: E402
 from repro_torch.core.router import TreeRouter  # noqa: E402
@@ -35,6 +38,7 @@ from repro_torch.kernels.tree_route import tree_route  # noqa: E402
 from repro_torch.kernels.vq_assign import vq_assign  # noqa: E402
 from repro_torch.quant.anisotropic import anisotropic_assign, eta_from_threshold  # noqa: E402
 from repro_torch.quant.int8 import int8_quantize  # noqa: E402
+from repro_torch.serve.engine import AnnEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -732,3 +736,88 @@ def test_search_numpy_on_card_matches_cpu(cuda):
         assert float((gi.cpu() == wi).float().mean()) >= 0.995
         assert torch.equal(gs.points_read.cpu(), ws.points_read)
     assert tree_route.launches > n0
+
+
+def _same_mutable(a, b):
+    """Two MutableIVFs equal bit for bit: state, counters, router tables."""
+    for k in ("centroids", "part_ids", "part_codes", "sizes", "rerank",
+              "assignments", "alive"):
+        x, y = getattr(a, k), getattr(b, k)
+        assert x.device == y.device and torch.equal(x, y), k
+    for k in ("n_total", "n_dead_slots", "n_soft_deleted", "wal_seq"):
+        assert getattr(a, k) == getattr(b, k), k
+    for k in ("super_centroids", "children", "child_centroids"):
+        assert torch.equal(getattr(a.router, k), getattr(b.router, k)), k
+    assert torch.equal(a.pq.centers, b.pq.centers)
+
+
+def test_mutable_snapshot_roundtrips_on_card(cuda, tmp_path):
+    """A mutated card index saved and read back onto the card is the same
+    bits, searches alike, and reads onto the CPU as the same bits too."""
+    ds, mut = _card_mutable(cuda, seed=2)
+    mut.add(ds.X[15_000:16_000].to(cuda))
+    mut.remove(torch.arange(0, 15_000, 9, device=cuda))
+    mut.remove(torch.arange(1, 15_000, 11, device=cuda), hard=False)
+    p = str(tmp_path / "snap")
+    save_snapshot(p, mut)
+    back, _ = load_snapshot(p, expect_kind="MutableIVF")
+    assert back.device.type == "cuda"
+    _same_mutable(back, mut)
+    kw = dict(top_t=8, rerank_budget=64)
+    Qn = ds.Q.numpy()
+    a = AnnEngine(mut, **kw).search(Qn, k=10)
+    b = AnnEngine(back, **kw).search(Qn, k=10)
+    assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+    cpu, _ = load_snapshot(p, device="cpu")
+    for k in ("part_ids", "part_codes", "rerank", "assignments", "alive"):
+        assert torch.equal(getattr(cpu, k), getattr(mut, k).cpu()), k
+
+
+def test_wal_replay_on_card_equals_live(cuda, tmp_path):
+    """Snapshot, then a logged mutation script on the card; a second engine
+    opened from the snapshot and the log replays it through the vq and
+    SOAR kernels to the live state, bit for bit."""
+    ds, mut = _card_mutable(cuda, seed=3)
+    p = str(tmp_path / "eng")
+    AnnEngine(mut, top_t=8, rerank_budget=64).save(p)
+    live = AnnEngine.open(p, wal=True)
+    m = live.index
+    for r in range(3):
+        m.remove(torch.arange(r, 15_000, 13, device=cuda))
+        m.add(ds.X[15_000 + 500 * r:15_500 + 500 * r].to(cuda))
+    m.remove(torch.arange(5, 15_000, 17, device=cuda), hard=False)
+    m.harden_soft_deletes()
+    m.compact()
+    n0 = (vq_assign.launches, soar_assign.launches)
+    again = AnnEngine.open(p)
+    assert vq_assign.launches > n0[0] and soar_assign.launches > n0[1]
+    _same_mutable(again.index, m)
+    assert again.index.wal_seq == 3 * 2 + 3
+    Qn = ds.Q.numpy()
+    assert np.array_equal(again.search(Qn, k=10)[0], live.search(Qn, k=10)[0])
+    for e in (live, again):
+        e.index._wal.close()
+
+
+def test_kmr_curve_on_card_matches_cpu(cuda):
+    """The KMR curve and rank statistics of one spilled index on the card
+    and on the CPU."""
+    ds = make_manifold(4, 20_000, 32, nq=200, device="cpu")
+    idx = build_ivf_sharded(torch.Generator().manual_seed(4), ds.X.to(cuda), 64,
+                            spill_mode="soar", device=cuda)
+    cpu = convert.index_from_numpy({
+        "centroids": idx.centroids.cpu().numpy(), "starts": idx.starts.cpu().numpy(),
+        "point_ids": idx.point_ids.cpu().numpy(), "codes": None, "pq.centers": None,
+        "rerank_f32": idx.rerank_f32.cpu().numpy(),
+        "assignments": idx.assignments.cpu().numpy(), "n_points": idx.n_points,
+        "spill_mode": idx.spill_mode, "lam": idx.lam}, device="cpu")
+    tid = true_neighbors(ds.X, ds.Q, k=20)
+    got = kmr_curve(idx, ds.Q.to(cuda), tid.to(cuda), k=20)
+    want = kmr_curve(cpu, ds.Q, tid, k=20)
+    np.testing.assert_allclose(got.points_at_t, want.points_at_t, rtol=1e-6)
+    np.testing.assert_allclose(got.recall_at_t, want.recall_at_t, rtol=0, atol=1e-6)
+    gp, gs = rank_statistics(idx, ds.Q.to(cuda), tid.to(cuda))
+    wp, ws = rank_statistics(cpu, ds.Q, tid)
+    assert gp.device.type == "cuda"
+    assert float((gp.cpu() == wp).float().mean()) >= 0.999
+    assert float((gs.cpu() == ws).float().mean()) >= 0.999

@@ -40,7 +40,10 @@ def test_every_port_module_imports_without_jax():
             importlib.import_module(name)
         for name in ("repro_torch.core.mutable", "repro_torch.serve.engine",
                      "repro_torch.serve.api", "repro_torch.convert",
-                     "repro_torch.kernels._build"):
+                     "repro_torch.kernels._build", "repro_torch.core.kmr",
+                     "repro_torch.core.analysis", "repro_torch.faults",
+                     "repro_torch.ckpt.faults", "repro_torch.ckpt.index_store",
+                     "repro_torch.ckpt.wal"):
             assert name in names, (name, names)
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k, v in sys.modules.items() if v is not None)
