@@ -117,7 +117,48 @@ just after, and fails if one of its kernels was never launched:
      one byte of arrays.bin flipped, after which open raises
      CorruptSnapshotError. Prints replay seconds and the log's bytes
      (kernels: vq_assign, soar_assign, tree_route, pq_score_probes);
- 14. each kernel against its plain PyTorch version on the paths' own
+ 14. the serving front-end (PR 19) in front of phase 11's engine as phase
+     13 left it (about 1,000,000 live points, tree-routed): first each
+     query's bits alone against its bits inside batches of 2 to 200 (every
+     bucket 8-128; the engine pads to the bucket and runs every tile at
+     BQ rows) and a one-query request's host ms before and after that
+     repair; (a) 32 closed-loop client threads of 100 single-query
+     requests, half of them under 4 tenants (seeded 10% subsets of the live
+     ids), through ServingFrontend(policy="local", max_batch=128,
+     max_delay_ms=2, default_deadline_ms=50) and, beside it, calling the
+     engine directly under one lock (QPS, p50 / p99 ms, mean dispatch);
+     every front-end result equals the engine's answer to the same query
+     alone after close(), ids and scores, tenant results lie in tenant ∧
+     alive, stats["coalesced"] > 0 and one bitmap fill per tenant; (b) 16
+     searching clients while a mutator removes 1,000 live ids and re-adds
+     their vectors under a tenant, ten rounds: no id returned at or after
+     the epoch of its removal, each client's epochs monotone, the last
+     round's vectors in their own top 10 under their tenant on >= 90%;
+     (c) a 1,024-query burst into a 256-unit shed-oldest queue behind a
+     300 ms engine:search delay (every Future done, some shed), a 1 ms
+     deadline queued behind it expiring, a transient fault absorbed by
+     two retries, an error failing only its group, a BaseException failing
+     the queued Future and every later submit; (d) make_replicated_search
+     over two replicas on the one card equal to the local path on every
+     slot of the 10,000 queries, and the front-end saved with its tenants
+     and reopened on the card, equal on every slot (kernels: tree_route,
+     pq_score_probes, vq_assign, soar_assign);
+ 15. the kNN attention memory (PR 19) of one (layer, KV head) of
+     granite-3-2b (head_dim 64, 4 query heads a KV head): 8 sequences x
+     32,768 positions = 262,144 keys from make_manifold (intrinsic dim
+     10), seeded normal values, each sequence a segment; KNNMemory.build
+     (SOAR lam=1, c = 1,024); key recall and attention error at top_t 8 /
+     16 / 32 / 64 on the first queries; 64 decode steps, each appending one
+     position per sequence (one add call), retrieving k = 32 for each
+     sequence's 4 query heads within its segment (top_t 32), attending,
+     and one recency-4,096 request, on engine "jit" and again on "numpy"
+     from the same built memory: every id in its segment and window,
+     key-recall@32 against exact top-32 within the segment >= 0.85, mean
+     attention-output error < 0.15; at top_t 2 SOAR's key recall >= a
+     spill_mode="none" memory's - 0.02; the decoded memory saved and
+     reopened equal bit for bit, retrievals equal on every slot (kernels:
+     Lloyd, vq_assign, soar_assign);
+ 16. each kernel against its plain PyTorch version on the paths' own
      inputs, with its time (CUDA events), the plain version's time and the
      least time the card could take: the larger of bytes / 3.35 TB/s and
      the operations' time, where f32 products (x·cᵀ) count at the TF32
@@ -148,7 +189,7 @@ just after, and fails if one of its kernels was never launched:
      its calls and its bound (bytes / 3.35 TB/s against f32 operations /
      67 TFLOP/s), on a "plain work" line. "launches" of a kernel sum every
      driven path above but the filtered one;
- 15. the {"kernels": [...]} line, then the device line, last.
+ 17. the {"kernels": [...]} line, then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package (src/repro).
 """
@@ -161,6 +202,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 from contextlib import ExitStack, contextmanager
@@ -183,6 +225,15 @@ HOST_NQ = 1000                     # serving phase: queries of the host engine
 KMR_K, KMR_TARGETS = 100, (0.8, 0.9, 0.95, 0.99)  # paper metrics: neighbours, recall targets
 RANK_NQ = 1000                     # paper metrics: queries whose ranks are checked on the CPU
 WAL_ROUNDS = 3                     # durability: logged rounds of CHURN removals and re-adds
+TENANTS, FE_CLIENTS, FE_REQS = 4, 32, 100  # front-end: tenants, client threads, requests each
+BURST = 1024                       # front-end: queued single queries under a 256-unit queue
+# kNN memory: one (layer, KV head) of granite-3-2b (src/repro/configs/granite_3_2b.py:
+# head_dim 64, 32 query heads over 8 KV heads, so GQA = 4 query heads a memory), 8
+# sequences x 32,768 cached positions (Memorizing Transformers' largest memory, 262,144)
+HEAD_DIM, GQA, MEM_SEQS, MEM_N = 64, 4, 8, 262_144
+MEM_STEPS, K_MEM, RECENCY = 64, 32, 4096   # decode steps, keys retrieved, recency window
+MEM_TOP_T = 32                     # partitions probed: 3% of c = 1,024
+SPILL_NQ = 512                     # queries of the SOAR-against-none check at top_t 2
 ANISO_T = 0.2                      # ScaNN's glove-100-angular anisotropic threshold
 DENSE_ROWS = 1_000_000             # code rows of the dense kernel check
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S = 3.35e12, 67e12, 495e12
@@ -401,7 +452,8 @@ def main() -> int:
     from repro_torch.core.build import assign_shards
     from repro_torch.core.kmeans import train_kmeans
     from repro_torch.core.mutable import MutableIVF
-    from repro_torch.core.search import search_numpy
+    from repro_torch.core.distributed import make_replicated_search
+    from repro_torch.core.search import pad_queries, search_numpy
     from repro_torch.core.router import FlatRouter
     from repro_torch.data.vectors import make_manifold
     from repro_torch.kernels import _build, ops, ref
@@ -415,8 +467,11 @@ def main() -> int:
     from repro_torch.quant import anisotropic as aniso_mod
     from repro_torch.quant.int8 import int8_quantize
     from repro_torch.quant.pq import pq_lut
-    from repro_torch.serve.api import SearchParams
+    from repro_torch.serve.api import (DeadlineExceededError, FrontendClosedError,
+                                       OverloadedError, SearchParams)
     from repro_torch.serve.engine import AnnEngine
+    from repro_torch.serve.frontend import ServingFrontend
+    from repro_torch.serve.knn_memory import KNNMemory, exact_topk_attention
     from repro_torch.utils import set_f32_precision, topk_first, topk_inner_product
 
     set_f32_precision()
@@ -1094,9 +1149,450 @@ def main() -> int:
     assert min(dsum["replay_launches"].values()) > 0, \
         f"the replayed adds did not launch the assignment kernels: {dsum['replay_launches']}"
     assert dsum["corrupt_open_raised"], "a flipped byte of arrays.bin opened without an error"
+
+    # 14. the serving front-end in front of phase 11's engine (after phase 13)
+    def frontend_phase(tmp):
+        """Coalescing with tenants against direct calls, mutation barriers,
+        admission / deadlines / faults, replica fan-out, save and reopen →
+        numbers (checks below)."""
+        out = {}
+        torch.cuda.reset_peak_memory_stats()
+        out["resident_before_bytes"] = torch.cuda.memory_allocated()
+        t_phase = time.perf_counter()
+        mut, Qn = eng.index, ds.Q.cpu().numpy()
+        p10 = SearchParams(k=FINAL_K)
+        # the padding repair: a query's bits alone and inside every bucket
+        solo = [eng.search_request(Qn[i:i + 1], p10) for i in range(64)]
+        out["buckets_equal_solo"] = {}
+        for nq in (2, 9, 17, 33, 65, 128, 200):
+            r = eng.search_request(Qn[:nq], p10)
+            out["buckets_equal_solo"][nq] = all(
+                np.array_equal(r.ids[i], solo[i].ids[0])
+                and np.array_equal(r.scores[i], solo[i].scores[0]) for i in range(min(nq, 64)))
+        # what the repair costs a one-query request: 1 row (the parent's
+        # engine), bucket 8 (JAX's padding alone), bucket 8 at 128 rows (now)
+        packed, q1 = mut.pack(), Qn[:1]
+        kw1 = dict(top_t=TOP_T, final_k=FINAL_K, rerank_budget=BUDGET,
+                   multiplicity=1 + max(mut.n_spills, 1))
+        q8 = pad_queries(q1, BQ)[0]
+        out["one_query_ms"] = {name: host_us(fn) / 1e3 for name, fn in (
+            ("one_row", lambda: search_jit_batched(packed, q1, bq=BQ, **kw1)[0].cpu()),
+            ("bucket8", lambda: search_jit_batched(packed, q8, bq=8, **kw1)[0].cpu()),
+            ("bucket8_at_bq_rows", lambda: search_jit_batched(
+                packed, q8, bq=8, tile_rows=BQ, **kw1)[0].cpu()),
+            ("engine", lambda: eng.search_request(q1, p10)))}
+        # (a) 32 closed-loop clients, half of them under 4 tenants
+        g = np.random.default_rng(args.seed + 3)
+        live = torch.nonzero(mut.alive[:mut.n_total]).reshape(-1).cpu().numpy()
+        masks = {}
+        for t in range(TENANTS):
+            m = np.zeros(mut.n_total, bool)
+            m[g.choice(live, live.size // 10, replace=False)] = True
+            masks[f"t{t}"] = m
+        plan = [(c, g.integers(0, NQ, FE_REQS), f"t{c % TENANTS}" if c < FE_CLIENTS // 2 else None)
+                for c in range(FE_CLIENTS)]
+
+        def run_clients(call):
+            """Each client sends its FE_REQS single-query requests back to
+            back → (wall s, latencies ms, results by (client, i))."""
+            lat, res = [], {}
+            lock = threading.Lock()
+
+            def client(c, qs, tenant):
+                for i, qi in enumerate(qs):
+                    t0 = time.perf_counter()
+                    r = call(Qn[qi:qi + 1], tenant)
+                    dt = (time.perf_counter() - t0) * 1e3
+                    with lock:
+                        lat.append(dt)
+                        res[(c, i)] = r
+            threads = [threading.Thread(target=client, args=a) for a in plan]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+                assert not t.is_alive(), "a client hung"
+            return time.perf_counter() - t0, np.array(lat), res
+
+        def summary(wall, lat):
+            return {"qps": FE_CLIENTS * FE_REQS / wall, "p50_ms": float(np.percentile(lat, 50)),
+                    "p99_ms": float(np.percentile(lat, 99)), "wall_s": wall}
+
+        dlock = threading.Lock()
+
+        def direct(q, tenant):
+            with dlock:
+                return eng.search_request(q, SearchParams(
+                    k=FINAL_K, filter_mask=None if tenant is None else masks[tenant]))
+
+        for t in [None, *masks]:                         # warm the direct path
+            direct(Qn[:1], t)
+        wall, lat, _ = run_clients(direct)
+        out["direct"] = summary(wall, lat)
+        fe = ServingFrontend(eng, policy="local", max_batch=BQ, max_delay_ms=2,
+                             default_deadline_ms=50)
+        for t, m in masks.items():
+            fe.register_tenant(t, mask=m)
+        wall, lat, res = run_clients(
+            lambda q, tenant: fe.submit(q, SearchParams(k=FINAL_K, tenant=tenant)).result(timeout=600))
+        out["frontend"] = summary(wall, lat)
+        st = dict(fe.stats)
+        out["frontend"].update(stats=st, mean_dispatch=st["requests"] / st["dispatches"],
+                               tenant_fills=fe.tenants.fills)
+        bitmaps = {t: fe.tenants.get(t) for t in masks}
+        fe.close()
+        epoch = mut._alive_epoch
+        equal = in_tenant = 0
+        for c, qs, tenant in plan:
+            for i, qi in enumerate(qs):
+                r = res[(c, i)]
+                s = eng.search_request(Qn[qi:qi + 1], p10,
+                                       _filter_dev=None if tenant is None else bitmaps[tenant])
+                equal += (r.epoch == s.epoch == epoch and np.array_equal(r.ids, s.ids)
+                          and np.array_equal(r.scores, s.scores))
+                if tenant is not None:
+                    got = r.ids[r.ids >= 0]
+                    in_tenant += bool(masks[tenant][got].all()
+                                      and mut.alive[torch.from_numpy(got).to(DEVICE).long()].all())
+        out["coalesced_equal_solo_share"] = equal / (FE_CLIENTS * FE_REQS)
+        out["tenant_results_in_tenant_share"] = in_tenant / (FE_CLIENTS // 2 * FE_REQS)
+        # (b) 16 searching clients and a mutator: 10 rounds of remove + add
+        vg = torch.Generator().manual_seed(args.seed + 4)
+        pool = torch.from_numpy(live).to(DEVICE)[torch.randperm(live.size, generator=vg)[
+            :ROUNDS * CHURN].to(DEVICE)]
+        victims = pool.reshape(ROUNDS, CHURN).cpu().numpy()
+        vecs = mut.rerank[pool].reshape(ROUNDS, CHURN, -1).cpu().numpy()
+        e0 = mut._alive_epoch
+        fe = ServingFrontend(eng, policy="local", max_batch=BQ, max_delay_ms=2,
+                             default_deadline_ms=50)
+        for t, m in masks.items():
+            fe.register_tenant(t, mask=m)
+        done, seen, steps, new_ids = threading.Event(), [], [], []
+
+        def searcher(c):
+            qg = np.random.default_rng(c)
+            mine = []
+            while not done.is_set():
+                qi = int(qg.integers(0, NQ))
+                r = fe.submit(Qn[qi:qi + 1], p10).result(timeout=600)
+                mine.append((r.epoch, r.ids))
+            seen.append(mine)
+
+        threads = [threading.Thread(target=searcher, args=(c,)) for c in range(FE_CLIENTS // 2)]
+        for t in threads:
+            t.start()
+        for rnd in range(ROUNDS):
+            t0 = time.perf_counter()
+            fe.remove(victims[rnd])
+            t1 = time.perf_counter()
+            new_ids.append(fe.add(vecs[rnd], tenant=f"t{rnd % TENANTS}"))
+            steps.append({"remove_ms": (t1 - t0) * 1e3,
+                          "add_ms": (time.perf_counter() - t1) * 1e3})
+        done.set()
+        for t in threads:
+            t.join(timeout=600)
+            assert not t.is_alive(), "a searcher hung"
+        # the last round's vectors, under their tenant: their new ids
+        last_t = f"t{(ROUNDS - 1) % TENANTS}"
+        own = fe.submit(vecs[-1], SearchParams(k=FINAL_K, tenant=last_t)).result(timeout=600)
+        out["barrier_stats"] = dict(fe.stats)
+        fe.close()
+        # an id removed in round r is gone from epoch e0 + 2r + 1 on
+        gone_at = {int(v): e0 + 2 * r + 1 for r in range(ROUNDS) for v in victims[r]}
+        stale = monotone = 0
+        for mine in seen:
+            eps = [e for e, _ in mine]
+            monotone += all(a <= b for a, b in zip(eps, eps[1:]))
+            stale += sum(sum(gone_at.get(int(x), e + 1) <= e for x in ids[ids >= 0])
+                         for e, ids in mine)
+        out["barriers"] = {
+            "searches": sum(len(m) for m in seen), "rounds_ms": steps,
+            "epochs": [e0, mut._alive_epoch], "stale_ids_returned": stale,
+            "clients_monotone": monotone,
+            "readded_in_own_tenant_top10": float((own.ids == new_ids[-1][:, None]).any(1).mean())}
+        # (c) admission, deadlines and faults
+        fe = ServingFrontend(eng, policy="local", max_batch=BQ, max_delay_ms=2,
+                             default_deadline_ms=50, max_queue=256, overload="shed-oldest",
+                             retry_backoff_ms=0.5)
+        res_c = {}
+        faults.inject("engine:search@1x1", mode="delay", delay_ms=300.0)
+        first = fe.submit(Qn[:1], p10)
+        t0 = time.perf_counter()
+        while fe._q and time.perf_counter() - t0 < 5.0:
+            time.sleep(0.001)
+        burst = [fe.submit(Qn[i % NQ:i % NQ + 1], p10) for i in range(BURST)]
+        late = fe.submit(Qn[:1], SearchParams(k=FINAL_K, deadline_ms=1.0))
+        outcomes = Counter()
+        for f in [first] + burst:
+            try:
+                f.result(timeout=120)
+                outcomes["served"] += 1
+            except OverloadedError:
+                outcomes["shed"] += 1
+        try:
+            late.result(timeout=120)
+            res_c["deadline_raised"] = False
+        except DeadlineExceededError:
+            res_c["deadline_raised"] = True
+        faults.uninstall()
+        res_c["burst"] = dict(outcomes)
+        res_c["burst_stats"] = dict(fe.stats)
+        want = eng.search_request(Qn[:2], p10)
+        faults.install("engine:search@1x2", mode="transient")
+        r = fe.submit(Qn[:2], p10).result(timeout=120)
+        res_c["transient_retries"] = r.retries
+        res_c["transient_equal"] = bool(np.array_equal(r.ids, want.ids)
+                                        and np.array_equal(r.scores, want.scores))
+        faults.install("engine:search@1x1", mode="error")
+        try:
+            fe.submit(Qn[:1], p10).result(timeout=120)
+            res_c["error_raised"] = False
+        except faults.InjectedFault:
+            res_c["error_raised"] = True
+        res_c["served_after_error"] = fe.submit(Qn[:1], p10).result(timeout=120).ids.shape
+        faults.install("engine:search@1x1", mode="delay", delay_ms=300.0)
+        faults.inject("engine:search@2", mode="raise")
+        stall = fe.submit(Qn[:1], p10)
+        t0 = time.perf_counter()
+        while fe._q and time.perf_counter() - t0 < 5.0:
+            time.sleep(0.001)
+        s1 = fe.submit(Qn[:1], SearchParams(k=4))
+        s2 = fe.submit(Qn[:1], SearchParams(k=5))
+        stall.result(timeout=120)
+        crash = []
+        for f, expect in ((s1, faults.InjectedCrash), (s2, FrontendClosedError)):
+            try:
+                f.result(timeout=120)
+                crash.append(False)
+            except expect:
+                crash.append(True)
+        try:
+            fe.submit(Qn[:1], p10)
+            crash.append(False)
+        except FrontendClosedError:
+            crash.append(True)
+        faults.uninstall()
+        fe.close()
+        res_c["crash_fails_every_future_and_submit"] = crash
+        res_c["dispatcher_alive_after_crash"] = fe._thread.is_alive()
+        out["resilience"] = res_c
+        # (d) replicas over [cuda:0, cuda:0], then save and reopen
+        Qp, nq, bq = pad_queries(Qn, BQ, multiple=2)
+        rep = make_replicated_search([DEVICE, DEVICE], top_t=TOP_T, final_k=FINAL_K,
+                                     rerank_budget=BUDGET, multiplicity=kw1["multiplicity"],
+                                     bq=bq, tile_rows=BQ)
+        (rids, rsc), out["replica_s"] = timed(lambda: rep(mut.pack(), Qp))
+        local = eng.search_request(Qn, p10)
+        out["replica_equal_local"] = bool(np.array_equal(rids[:nq].cpu().numpy(), local.ids)
+                                          and np.array_equal(rsc[:nq].cpu().numpy(), local.scores))
+        fe = ServingFrontend(eng, policy="local", max_batch=BQ, max_delay_ms=2,
+                             default_deadline_ms=50)
+        for t, m in masks.items():
+            fe.register_tenant(t, mask=m)
+        before = {t: fe.submit(Qn[:HOST_NQ], SearchParams(k=FINAL_K, tenant=t)).result(timeout=600)
+                  for t in (None, "t0")}
+        path = os.path.join(tmp, "frontend")
+        _, out["save_s"] = timed(lambda: fe.save(path))
+        fe.close()
+        fe2, out["open_s"] = timed(lambda: ServingFrontend.open(path, device=DEVICE))
+        after = {t: fe2.submit(Qn[:HOST_NQ], SearchParams(k=FINAL_K, tenant=t)).result(timeout=600)
+                 for t in (None, "t0")}
+        out["reopened"] = {
+            "tenants": fe2.tenants.tenants, "device": str(fe2.engine.index.device),
+            "masks_equal": all(np.array_equal(fe2.tenants._masks[t][:m.size], m)
+                               for t, m in masks.items()),
+            "equal": all(np.array_equal(before[t].ids, after[t].ids)
+                         and np.array_equal(before[t].scores, after[t].scores) for t in before)}
+        fe2.close()
+        del fe2
+        out["phase_s"] = time.perf_counter() - t_phase
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fsum, flaunch = drive(wrappers, ("tree_route", "pq_score_probes", "vq_assign",
+                                         "soar_assign"), lambda: frontend_phase(tmp))
+    path_launches.update(flaunch)
+    fsum["launches"] = flaunch
+    print("frontend: " + json.dumps(fsum))
+    assert all(fsum["buckets_equal_solo"].values()), \
+        f"a batched query's bits differ from its solo bits: {fsum['buckets_equal_solo']}"
+    assert fsum["coalesced_equal_solo_share"] == 1.0, \
+        f"coalesced results equal solo on {fsum['coalesced_equal_solo_share']} < 1.0"
+    assert fsum["tenant_results_in_tenant_share"] == 1.0, "a tenant result left tenant ∧ alive"
+    assert fsum["frontend"]["stats"]["coalesced"] > 0, "no request was coalesced"
+    assert fsum["frontend"]["tenant_fills"] == TENANTS, \
+        f"tenant bitmap fills {fsum['frontend']['tenant_fills']} != {TENANTS}"
+    bar = fsum["barriers"]
+    assert bar["stale_ids_returned"] == 0, "a removed id came back at or after its epoch"
+    assert bar["clients_monotone"] == FE_CLIENTS // 2, "a client's epochs decreased"
+    assert bar["readded_in_own_tenant_top10"] >= 0.9, \
+        f"re-added vectors under their tenant in their own top 10 on {bar['readded_in_own_tenant_top10']}"
+    rc = fsum["resilience"]
+    assert rc["burst"].get("shed", 0) > 0 and rc["burst_stats"]["shed"] > 0, \
+        f"nothing was shed under the burst: {rc['burst']}"
+    assert sum(rc["burst"].values()) == BURST + 1, "a burst Future did not complete"
+    assert rc["deadline_raised"], "a 1 ms deadline queued behind the delay did not expire"
+    assert rc["transient_retries"] == 2 and rc["transient_equal"], "transient faults not absorbed"
+    assert rc["error_raised"] and rc["served_after_error"] == (1, FINAL_K), \
+        "an error fault was not contained to its group"
+    assert all(rc["crash_fails_every_future_and_submit"]) and \
+        not rc["dispatcher_alive_after_crash"], "a fatal fault stranded a Future"
+    assert fsum["replica_equal_local"], "replicated results differ from the local path"
+    assert fsum["reopened"]["equal"] and fsum["reopened"]["masks_equal"] and \
+        fsum["reopened"]["tenants"] == [f"t{t}" for t in range(TENANTS)], \
+        "the reopened front-end serves other tenants or results"
     del eng
 
-    # 14. each kernel against its plain version, on the paths' inputs
+    # 15. the kNN attention memory of one (layer, KV head) of granite-3-2b
+    def knn_phase(tmp):
+        """Build, decode on both engines against exact attention within the
+        segment, SOAR against no spill at top_t 2, save and reopen →
+        numbers (checks below)."""
+        out = {}
+        torch.cuda.reset_peak_memory_stats()
+        out["resident_before_bytes"] = torch.cuda.memory_allocated()
+        t_phase = time.perf_counter()
+        n_new = MEM_STEPS * MEM_SEQS
+        kd = make_manifold(args.seed + 5, MEM_N + n_new, HEAD_DIM,
+                           nq=MEM_STEPS * MEM_SEQS * GQA, intrinsic_dim=10, device=DEVICE)
+        V = torch.randn((MEM_N + n_new, HEAD_DIM),
+                        generator=torch.Generator().manual_seed(args.seed + 6)).to(DEVICE)
+        seg0 = np.repeat(np.arange(MEM_SEQS), MEM_N // MEM_SEQS)
+        mem, out["build_s"] = timed(lambda: KNNMemory.build(
+            kd.X[:MEM_N], V[:MEM_N], lam=1.0, spill_mode="soar", seed=args.seed,
+            engine="jit", segment=seg0, device=DEVICE))
+        out["partitions"] = int(mem.index.centroids.shape[0])
+        fresh = os.path.join(tmp, "fresh")
+        _, out["save_fresh_s"] = timed(lambda: mem.save(fresh))
+        qs = kd.Q.reshape(MEM_STEPS, MEM_SEQS, GQA, HEAD_DIM)
+
+        def quality(m, top_t, steps):
+            """Key-recall@K_MEM and attention-output error within each
+            sequence's segment for the first `steps` steps' queries, before
+            any append → (recall, error)."""
+            segs, hits, errs = m.segments[:m.index.n_total], 0.0, 0.0
+            for j in range(MEM_SEQS):
+                ids_j = torch.nonzero(segs == j).reshape(-1)
+                q = qs[:steps, j].reshape(-1, HEAD_DIM)
+                eo, ei = exact_topk_attention(q, m.keys[ids_j], m.values[ids_j], K_MEM)
+                o, got = m.attend(q.cpu().numpy(), k=K_MEM, top_t=top_t, segment=j)
+                hits += (got[:, :, None] == ids_j.cpu().numpy()[ei][:, None, :]).any(-1).mean()
+                errs += float(np.mean(np.linalg.norm(o - eo, axis=1)
+                                      / np.maximum(np.linalg.norm(eo, axis=1), 1e-9)))
+            return hits / MEM_SEQS, errs / MEM_SEQS
+
+        out["probe_sweep"] = {t: dict(zip(("key_recall", "attn_rel_err"), quality(mem, t, 8)))
+                              for t in (8, 16, 32, 64)}
+
+        def decode(m):
+            """MEM_STEPS steps: append one position per sequence, retrieve
+            and attend for each sequence's query heads within its segment,
+            one recency request → numbers."""
+            t = {"add": 0.0, "retrieve": 0.0, "attend": 0.0}
+            hits = errs = 0.0
+            bad_segment = bad_recency = 0
+            for s in range(MEM_STEPS):
+                lo = MEM_N + s * MEM_SEQS
+                _, dt = timed(lambda: m.add(kd.X[lo:lo + MEM_SEQS], V[lo:lo + MEM_SEQS],
+                                            segment=np.arange(MEM_SEQS)))
+                t["add"] += dt
+                nt = m.index.n_total
+                keys, segs = m.keys, m.segments[:nt]
+                sync()
+                t0 = time.perf_counter()
+                got = [m.retrieve(qs[s, j].cpu().numpy(), k=K_MEM, top_t=MEM_TOP_T, segment=j)[0]
+                       for j in range(MEM_SEQS)]
+                rec = m.retrieve(qs[s, 0].cpu().numpy(), k=K_MEM, top_t=MEM_TOP_T,
+                                 recency=RECENCY)[0]
+                sync()
+                t["retrieve"] += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                att = [m.attend(qs[s, j].cpu().numpy(), k=K_MEM, top_t=MEM_TOP_T, segment=j)
+                       for j in range(MEM_SEQS)]
+                sync()
+                t["attend"] += time.perf_counter() - t0
+                r = rec[rec >= 0]
+                bad_recency += int((r < nt - RECENCY).sum())
+                for j in range(MEM_SEQS):
+                    ids_j = torch.nonzero(segs == j).reshape(-1)
+                    eo, ei = exact_topk_attention(qs[s, j], keys[ids_j], m.values[ids_j], K_MEM)
+                    exact_ids = ids_j.cpu().numpy()[ei]
+                    g = got[j]
+                    bad_segment += int((segs[torch.from_numpy(g[g >= 0]).to(DEVICE).long()]
+                                        != j).sum())
+                    hits += (g[:, :, None] == exact_ids[:, None, :]).any(-1).mean()
+                    out_j, _ = att[j]
+                    errs += float(np.mean(np.linalg.norm(out_j - eo, axis=1)
+                                          / np.maximum(np.linalg.norm(eo, axis=1), 1e-9)))
+            n = MEM_STEPS * MEM_SEQS
+            return {"key_recall_at_32": hits / n, "attn_rel_err": errs / n,
+                    "ids_outside_segment": bad_segment, "ids_outside_recency": bad_recency,
+                    **{f"{k}_ms_per_step": v / MEM_STEPS * 1e3 for k, v in t.items()}}
+
+        out["jit"] = decode(mem)
+        twin = KNNMemory.open(fresh, device=DEVICE)
+        twin.engine = "numpy"
+        out["numpy"] = decode(twin)
+        del twin
+        # SOAR against no spill at a tight probe budget, over the built keys
+        soar = KNNMemory.open(fresh, device=DEVICE)
+        none, out["build_none_s"] = timed(lambda: KNNMemory.build(
+            kd.X[:MEM_N], V[:MEM_N], spill_mode="none", seed=args.seed, engine="jit",
+            device=DEVICE))
+        qt = kd.Q[:SPILL_NQ]
+        _, exact_ids = exact_topk_attention(qt, kd.X[:MEM_N], V[:MEM_N], K_MEM)
+        out["top_t2_key_recall"] = {}
+        for name, m in (("soar", soar), ("none", none)):
+            ids, _, _ = m.retrieve(qt.cpu().numpy(), k=K_MEM, top_t=2)
+            out["top_t2_key_recall"][name] = float(
+                (ids[:, :, None] == exact_ids[:, None, :]).any(-1).mean())
+        del soar, none
+        # the decoded memory saved, reopened: the same bits and retrievals
+        path = os.path.join(tmp, "decoded")
+        _, out["save_s"] = timed(lambda: mem.save(path))
+        back, out["open_s"] = timed(lambda: KNNMemory.open(path, device=DEVICE))
+        a, b = mem.index, back.index
+        out["reopened_equal"] = bool(
+            all(torch.equal(getattr(a, k), getattr(b, k)) for k in (
+                "centroids", "part_ids", "sizes", "rerank", "assignments", "alive"))
+            and all(getattr(a, k) == getattr(b, k) for k in ("n_total", "n_dead_slots",
+                                                              "n_soft_deleted"))
+            and torch.equal(mem.values, back.values) and torch.equal(mem.segments, back.segments)
+            and (mem.engine, mem.top_t) == (back.engine, back.top_t))
+        qn = kd.Q[:SPILL_NQ].cpu().numpy()
+        out["reopened_retrieval_equal"] = all(
+            np.array_equal(mem.retrieve(qn, k=K_MEM, top_t=MEM_TOP_T, **kw)[0],
+                           back.retrieve(qn, k=K_MEM, top_t=MEM_TOP_T, **kw)[0])
+            for kw in (dict(), dict(segment=3), dict(recency=RECENCY)))
+        out["snapshot_bytes"] = sum(os.path.getsize(os.path.join(path, f))
+                                    for f in ("arrays.bin", "manifest.json"))
+        out["n_total"] = mem.index.n_total
+        out["phase_s"] = time.perf_counter() - t_phase
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        msum, mlaunch = drive(wrappers, ("lloyd_sweep", "vq_assign", "soar_assign"),
+                              lambda: knn_phase(tmp))
+    path_launches.update(mlaunch)
+    msum["launches"] = mlaunch
+    torch.cuda.empty_cache()
+    print("knn memory: " + json.dumps(msum))
+    for eng_name in ("jit", "numpy"):
+        d = msum[eng_name]
+        assert d["ids_outside_segment"] == 0, f"{eng_name}: an id outside its segment"
+        assert d["ids_outside_recency"] == 0, f"{eng_name}: an id outside the recency window"
+        assert d["key_recall_at_32"] >= 0.85, \
+            f"{eng_name}: key-recall@32 {d['key_recall_at_32']} < 0.85"
+        assert d["attn_rel_err"] < 0.15, f"{eng_name}: attention error {d['attn_rel_err']}"
+    t2 = msum["top_t2_key_recall"]
+    assert t2["soar"] >= t2["none"] - 0.02, f"SOAR below no spill at top_t 2: {t2}"
+    assert msum["reopened_equal"] and msum["reopened_retrieval_equal"], \
+        "the reopened memory differs from the saved one"
+
+    # 16. each kernel against its plain version, on the paths' inputs
     kernels = []
 
     def record(name, source, replaces, err, ms, plain_ms, nbytes, ops_, mm_ops=0.0,
@@ -1363,7 +1859,7 @@ def main() -> int:
               f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
     print("plain work: " + json.dumps(plain))
 
-    # 15. result lines
+    # 17. result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

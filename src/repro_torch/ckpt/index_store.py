@@ -30,10 +30,10 @@ Arrays are copied to the host to be written (one device-to-host copy per
 array) and loaded onto `device` (CUDA unless the caller passes "cpu").
 Serialized kinds: ``IVFIndex``, ``MutableIVF`` (the whole mutation state
 at capacity width, so the reopened index delta-packs as the saved one
-did), ``PackedIVF``, and a multi-shard envelope (``save_shards`` /
-``load_shards``). Routers (flat or tree) ride every kind. The JAX
-package's ``KNNMemory`` kind is not ported yet: loading one raises
-``NotImplementedError``.
+did), ``PackedIVF``, ``KNNMemory`` (its index as a ``MutableIVF`` under
+``index.`` names, the value buffer and the segment labels at capacity
+width), and a multi-shard envelope (``save_shards`` / ``load_shards``).
+Routers (flat or tree) ride every kind.
 """
 from __future__ import annotations
 
@@ -273,12 +273,15 @@ def _state_of(obj, extra: Optional[dict]):
     from repro_torch.core.ivf import IVFIndex
     from repro_torch.core.mutable import MutableIVF
     from repro_torch.core.search import PackedIVF
+    from repro_torch.serve.knn_memory import KNNMemory
     if isinstance(obj, MutableIVF):
         kind, meta, arrays = _mutable_state(obj)
     elif isinstance(obj, IVFIndex):
         kind, meta, arrays = _ivf_state(obj)
     elif isinstance(obj, PackedIVF):
         kind, meta, arrays = _packed_state(obj)
+    elif isinstance(obj, KNNMemory):
+        kind, meta, arrays = _knn_state(obj)
     else:
         raise TypeError(f"cannot snapshot object of type "
                         f"{type(obj).__name__}")
@@ -361,8 +364,30 @@ def _packed_from(meta, arrays, device):
     return packed_from_numpy(_fields(meta, arrays), device=device)
 
 
+def _knn_state(mem):
+    _, imeta, iarrays = _mutable_state(mem.index)
+    arrays = {f"index.{k}": v for k, v in iarrays.items()}
+    arrays["values"] = mem.values
+    if mem.segments is not None:
+        arrays["segments"] = mem.segments
+    return "KNNMemory", {"engine": mem.engine, "top_t": mem.top_t,
+                         "index": imeta}, arrays
+
+
+def _knn_from(meta, arrays, device):
+    from repro_torch.convert import knn_memory_from_numpy
+    iarrays = {k[len("index."):]: v for k, v in arrays.items()
+               if k.startswith("index.")}
+    fields = {"index": _fields(meta["index"], iarrays),
+              "values": arrays["values"], "segments": arrays.get("segments"),
+              "engine": meta["engine"]}
+    if "top_t" in meta:
+        fields["top_t"] = meta["top_t"]
+    return knn_memory_from_numpy(fields, device=device)
+
+
 _LOADERS = {"IVFIndex": _ivf_from, "MutableIVF": _mutable_from,
-            "PackedIVF": _packed_from}
+            "PackedIVF": _packed_from, "KNNMemory": _knn_from}
 
 
 # ---------------------------------------------------------------- main API
@@ -410,10 +435,6 @@ def load_snapshot(path: str, *, expect_kind: Optional[str] = None,
     path = resolve_snapshot_dir(path)
     manifest = read_manifest(path)
     kind = manifest["kind"]
-    if kind == "KNNMemory":
-        raise NotImplementedError(
-            f"snapshot at {path} holds a KNNMemory, which the PyTorch port "
-            f"does not load yet: ROADMAP Queue A item 7 (serve/knn_memory.py)")
     if kind not in _LOADERS:
         raise CorruptSnapshotError(f"unknown snapshot kind {kind!r}")
     if expect_kind is not None and kind != expect_kind:

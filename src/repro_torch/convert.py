@@ -6,8 +6,9 @@ packages can search the same bits; `packed_from_numpy` does the same for a
 JAX `repro.core.search.PackedIVF` (a mutable index's packed snapshot
 included), and `mutable_from_numpy` for a JAX
 `repro.core.mutable.MutableIVF`'s whole state, so both packages can be
-mutated side by side from the same bits. A router travels under the names of the JAX package's snapshot
-codec (`repro/ckpt/index_store.py`).
+mutated side by side from the same bits, and `knn_memory_from_numpy` for a
+JAX `repro.serve.knn_memory.KNNMemory`. A router travels under the names of
+the JAX package's snapshot codec (`repro/ckpt/index_store.py`).
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from repro_torch.core.router import FlatRouter, TreeRouter
 from repro_torch.core.search import PackedIVF
 from repro_torch.quant.int8 import Int8Data
 from repro_torch.quant.pq import PQCodebook
+from repro_torch.serve.api import DEFAULT_TOP_T
+from repro_torch.serve.knn_memory import KNNMemory
 from repro_torch.utils import Device, resolve_device
 
 FIELDS = ("centroids", "starts", "point_ids", "codes", "pq.centers",
@@ -151,3 +154,21 @@ def mutable_from_numpy(fields: Mapping[str, object], device: Device = None) -> M
         n_soft_deleted=int(fields["n_soft_deleted"]),
         compact_threshold=float(fields["compact_threshold"]),
         router=_router(fields, t), wal_seq=int(fields.get("wal_seq", 0)))
+
+
+def knn_memory_from_numpy(fields: Mapping[str, object], device: Device = None) -> KNNMemory:
+    """JAX KNNMemory state → the port's KNNMemory on `device`.
+
+    Keys: index (the MutableIVF's fields, as `mutable_from_numpy` takes
+    them), values (cap_n, hd) f32, segments (cap_n,) int32 or None, engine
+    ("numpy" | "jit"); optional top_t (the serving default when absent).
+    The value and segment buffers keep their capacity, so both memories
+    grow alike.
+    """
+    _missing(fields, ("index", "values", "segments", "engine"))
+    index = mutable_from_numpy(fields["index"], device=device)
+    t = _reader(fields, index.device)
+    return KNNMemory(index=index, values=t("values", torch.float32),
+                     engine=str(fields["engine"]),
+                     segments=t("segments", torch.int32),
+                     top_t=int(fields.get("top_t", DEFAULT_TOP_T)))

@@ -256,11 +256,20 @@ def pad_queries(Q: np.ndarray, bq_cap: int, multiple: int = 1):
 def search_jit_batched(packed: PackedIVF, Q, top_t: int, final_k: int,
                        rerank_budget: int = 256, bq: int = 128,
                        multiplicity: int = 2, filter=None,
-                       escalate: bool = True, router=None):
+                       escalate: bool = True, router=None,
+                       tile_rows: Optional[int] = None):
     """`search_jit` over bq-query tiles, so live buffers stay
     O(bq·top_t·pmax) whatever nq. Every stage is query-local, so a tile's
     results do not depend on the others. `filter`/`escalate`/`router` as
-    in search_jit, shared by every tile."""
+    in search_jit, shared by every tile.
+
+    tile_rows: run every tile at this many rows (zero queries appended,
+    their results dropped). On the card cuBLAS picks a product's algorithm
+    by its shape, so the rerank and flat-route products of a query give
+    other bits in a tile of 16 rows than in one of 8; at one fixed row
+    count a query's results are the same bits whatever shares its tile
+    (the serving engine's coalesced ≡ solo guarantee). None runs each
+    tile at its own size."""
     Q = as_tensor(Q, packed.centroids.device, torch.float32)
     filter = _filter_bits(packed, filter)
     nq = Q.shape[0]
@@ -268,9 +277,15 @@ def search_jit_batched(packed: PackedIVF, Q, top_t: int, final_k: int,
         dev = Q.device
         return (torch.zeros((0, final_k), dtype=torch.int32, device=dev),
                 torch.zeros((0, final_k), dtype=torch.float32, device=dev))
-    outs = [_search_block(packed, Q[i0:i0 + bq], top_t, final_k,
-                          rerank_budget, multiplicity, filter, escalate, router)
-            for i0 in range(0, nq, bq)]
+    outs = []
+    for i0 in range(0, nq, bq):
+        Qt = Q[i0:i0 + bq]
+        n = Qt.shape[0]
+        if tile_rows is not None and n < tile_rows:
+            Qt = torch.cat([Qt, Qt.new_zeros((tile_rows - n, Qt.shape[1]))])
+        ids, vals = _search_block(packed, Qt, top_t, final_k, rerank_budget,
+                                  multiplicity, filter, escalate, router)
+        outs.append((ids[:n], vals[:n]))
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
 
 

@@ -22,7 +22,7 @@ from repro_torch.ckpt.index_store import load_snapshot, save_snapshot
 from repro_torch.ckpt.wal import MutationWAL
 from repro_torch.core.mutable import MutableIVF
 from repro_torch.core.router import clamp_top_t
-from repro_torch.core.search import search_jit_batched
+from repro_torch.core.search import pad_queries, search_jit_batched
 from repro_torch.serve.api import (DEFAULT_BQ, DEFAULT_RERANK_BUDGET,
                                    DEFAULT_TOP_T, SearchParams, SearchResult,
                                    _positive_int, validate_queries)
@@ -91,12 +91,23 @@ class AnnEngine:
             filter_mask=filter_mask, escalate=escalate, sanitize=sanitize))
         return r.ids, r.scores
 
-    def search_request(self, Q, params: Optional[SearchParams] = None) -> SearchResult:
+    def search_request(self, Q, params: Optional[SearchParams] = None, *,
+                       _filter_dev=None) -> SearchResult:
         """Structured entry point: (nq, d) queries + SearchParams →
         SearchResult (numpy ids and scores).
 
         Validation runs through `SearchParams.validate()` and
-        `validate_queries`. `engine_us` runs from the snapshot to the results on the host,
+        `validate_queries`. The queries are padded with zero rows to a
+        power-of-two bucket (`pad_queries`: at least 8, at most `bq`) and
+        the pad rows' results dropped, as in the JAX package, so a query
+        is padded alike whether it comes alone or inside a coalesced
+        batch; every tile then runs at `bq` rows (`tile_rows`), which makes
+        a query's bits on the card independent of what shares its tile
+        (coalesced ≡ solo). `_filter_dev` is the front-end's seam: a
+        pre-composed device uint8 bitmap at the capacity width (tenant ∧
+        alive, cached by its TenantFilterBank) that replaces
+        `serving_filter`; it escalates as `params.escalate` says.
+        `engine_us` runs from the snapshot to the results on the host,
         whose copy waits for the device.
         """
         p = (params or SearchParams()).validate(
@@ -110,19 +121,23 @@ class AnnEngine:
                                 epoch=epoch, tenant=p.tenant,
                                 deadline_ms=p.deadline_ms)
         faults.serve_point("engine:search")
-        filt, escalate = self.index.serving_filter(
-            mask=p.filter_mask, ids=p.filter_ids, escalate=p.escalate)
+        if _filter_dev is not None:
+            filt, escalate = _filter_dev, p.escalate
+        else:
+            filt, escalate = self.index.serving_filter(
+                mask=p.filter_mask, ids=p.filter_ids, escalate=p.escalate)
         t0 = time.perf_counter()
+        Qp, nq, bq = pad_queries(Q, self.bq)
         ids, vals = search_jit_batched(
-            self.index.pack(), Q,
+            self.index.pack(), Qp,
             top_t=clamp_top_t(p.top_t, self.index.centroids.shape[0]),
             final_k=p.k, rerank_budget=max(p.rerank_budget, p.k),
-            bq=self.bq, multiplicity=1 + max(self.index.n_spills, 1),
-            filter=filt, escalate=escalate)
-        ids, vals = ids.cpu().numpy(), vals.cpu().numpy()
+            bq=bq, multiplicity=1 + max(self.index.n_spills, 1),
+            filter=filt, escalate=escalate, tile_rows=self.bq)
+        ids, vals = ids[:nq].cpu().numpy(), vals[:nq].cpu().numpy()
         return SearchResult(
             ids, vals, engine_us=(time.perf_counter() - t0) * 1e6,
-            batch_size=Q.shape[0], escalated=bool(escalate and filt is not None),
+            batch_size=nq, escalated=bool(escalate and filt is not None),
             epoch=epoch, tenant=p.tenant, deadline_ms=p.deadline_ms)
 
     # ---------------------------------------------------------- durability

@@ -3,10 +3,12 @@
 Each kernel is held against its plain PyTorch version on CUDA tensors,
 and the build + search slice, the tree-routed filtered search and the
 serving slice (online inserts, the pruned router, the delta pack, the host
-engine), snapshots and log replay onto the card, and the KMR curve on the
-card against the same slices on the CPU (which tests/test_torch_slice.py,
-test_torch_router.py, test_torch_filtered.py, test_torch_durability.py
-and test_torch_kmr.py hold against the JAX package). This
+engine), snapshots and log replay onto the card, the KMR curve, the
+front-end's coalesced ≡ solo guarantee, tenant bitmaps, replica fan-out
+and the kNN memory on the card against the same slices on the CPU (which
+tests/test_torch_slice.py, test_torch_router.py, test_torch_filtered.py,
+test_torch_durability.py, test_torch_kmr.py, test_torch_frontend.py and
+test_torch_knn_memory.py hold against the JAX package). This
 file imports nothing of JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -38,7 +40,12 @@ from repro_torch.kernels.tree_route import tree_route  # noqa: E402
 from repro_torch.kernels.vq_assign import vq_assign  # noqa: E402
 from repro_torch.quant.anisotropic import anisotropic_assign, eta_from_threshold  # noqa: E402
 from repro_torch.quant.int8 import int8_quantize  # noqa: E402
+from repro_torch.core.distributed import make_replicated_search  # noqa: E402
+from repro_torch.core.search import pad_queries  # noqa: E402
+from repro_torch.serve.api import SearchParams  # noqa: E402
 from repro_torch.serve.engine import AnnEngine  # noqa: E402
+from repro_torch.serve.frontend import ServingFrontend, TenantFilterBank  # noqa: E402
+from repro_torch.serve.knn_memory import KNNMemory  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -821,3 +828,109 @@ def test_kmr_curve_on_card_matches_cpu(cuda):
     assert gp.device.type == "cuda"
     assert float((gp.cpu() == wp).float().mean()) >= 0.999
     assert float((gs.cpu() == ws).float().mean()) >= 0.999
+
+
+def test_coalesced_equals_solo_on_card(cuda):
+    """A query's ids and scores inside a batch equal its solo bits on the
+    card, at every bucket from 8 to 128 and both routers: the engine pads
+    to the bucket and runs every tile at bq rows (cuBLAS picks the rerank
+    and flat-route products' algorithm by shape: 8 rows and 16 give other
+    bits). Through the front-end too, with concurrent clients."""
+    import threading
+    ds, mut = _card_mutable(cuda, seed=5)
+    flat = MutableIVF.build(torch.Generator().manual_seed(5), ds.X[:15_000], 64,
+                            spill_mode="soar", pq_subspaces=8, device=cuda)
+    Qn = ds.Q.numpy()
+    for index in (mut, flat):
+        eng = AnnEngine(index, top_t=8, rerank_budget=64)
+        solo = [eng.search_request(Qn[i:i + 1], SearchParams(k=10)) for i in range(64)]
+        for nq in (2, 9, 17, 33, 64, 100, 128, 200):
+            r = eng.search_request(Qn[:nq], SearchParams(k=10))
+            for i in range(min(nq, 64)):
+                assert np.array_equal(r.ids[i], solo[i].ids[0]), (nq, i)
+                assert np.array_equal(r.scores[i], solo[i].scores[0]), (nq, i)
+    with ServingFrontend(eng, policy="local", default_deadline_ms=200.0) as fe:
+        got = {}
+
+        def client(i):
+            got[i] = fe.submit(Qn[i:i + 1], SearchParams(k=10)).result(timeout=60)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        assert fe.stats["coalesced"] > 0
+    for i in range(32):
+        assert np.array_equal(got[i].ids, solo[i].ids)
+        assert np.array_equal(got[i].scores, solo[i].scores)
+
+
+def test_tenant_bitmap_on_card_refills_once_an_epoch(cuda):
+    """TenantFilterBank.get returns a CUDA uint8 tensor (tenant ∧ alive at
+    the capacity width), rebuilt once after each mutation and not again
+    within the epoch; tenant search equals the same subset as filter_ids."""
+    ds, mut = _card_mutable(cuda, seed=6)
+    eng = AnnEngine(mut, top_t=8, rerank_budget=64)
+    bank = TenantFilterBank(mut)
+    keep = np.arange(0, 15_000, 4)
+    bank.register("t", ids=keep)
+    bm = bank.get("t")
+    assert bm.device.type == "cuda" and bm.dtype == torch.uint8
+    assert bm.shape[0] == mut.alive.shape[0] and int(bm.sum()) == keep.size
+    assert bank.get("t") is bm and bank.fills == 1
+    eng.remove(keep[:10])
+    assert int(bank.get("t").sum()) == keep.size - 10 and bank.fills == 2
+    bank.get("t")
+    assert bank.fills == 2
+    Qn = ds.Q.numpy()
+    a = eng.search_request(Qn, SearchParams(k=10), _filter_dev=bank.get("t"))
+    b = eng.search_request(Qn, SearchParams(k=10, filter_ids=keep[10:]))
+    assert np.array_equal(a.ids, b.ids) and np.array_equal(a.scores, b.scores)
+
+
+def test_replicated_search_on_card_equals_local(cuda):
+    """make_replicated_search over [cuda:0, cuda:0]: the local path's bits."""
+    ds, mut = _card_mutable(cuda, seed=7)
+    eng = AnnEngine(mut, top_t=8, rerank_budget=64)
+    Qn = ds.Q.numpy()[:77]
+    Qp, nq, bq = pad_queries(Qn, eng.bq, multiple=2)
+    fn = make_replicated_search([cuda, cuda], top_t=8, final_k=10, rerank_budget=64,
+                                multiplicity=2, bq=bq, tile_rows=eng.bq)
+    ids, sc = fn(mut.pack(), Qp)
+    want = eng.search_request(Qn, SearchParams(k=10))
+    assert ids.device.type == "cuda"
+    assert np.array_equal(ids[:nq].cpu().numpy(), want.ids)
+    assert np.array_equal(sc[:nq].cpu().numpy(), want.scores)
+
+
+def test_knn_memory_on_card_matches_cpu_twin(cuda, tmp_path):
+    """A KNNMemory built on the card and its CPU twin (the same snapshot
+    read onto the CPU) retrieve the same ids on >= 0.999 of slots on both
+    engines, after per-row-labelled adds and evictions; attend agrees on
+    the rows whose ids agree; the vq and SOAR kernels ran the adds."""
+    ds = make_manifold(8, 20_000, 32, nq=64, device="cpu")
+    V = torch.randn(20_000, 32, generator=torch.Generator().manual_seed(8))
+    mem = KNNMemory.build(ds.X[:19_000], V[:19_000], n_partitions=64, engine="jit",
+                          segment=np.arange(19_000) % 4, device=cuda)
+    assert mem.values.device.type == "cuda" and mem.segments.device.type == "cuda"
+    n0 = (vq_assign.launches, soar_assign.launches)
+    mem.add(ds.X[19_000:], V[19_000:], segment=np.arange(1000) % 4)
+    assert vq_assign.launches > n0[0] and soar_assign.launches > n0[1]
+    mem.remove(np.arange(0, 19_000, 9))
+    mem.remove(np.arange(1, 19_000, 13), hard=False)
+    p = str(tmp_path / "mem")
+    mem.save(p)
+    twin = KNNMemory.open(p, device="cpu")
+    q = ds.Q.numpy()
+    for engine in ("jit", "numpy"):
+        mem.engine = twin.engine = engine
+        for kw in (dict(), dict(segment=2), dict(recency=3000), dict(segment=1, recency=5000)):
+            gi, _, _ = mem.retrieve(q, k=16, **kw)
+            wi, _, _ = twin.retrieve(q, k=16, **kw)
+            assert float((gi == wi).mean()) >= 0.999, (engine, kw)
+        go, gids = mem.attend(q, k=16, segment=3)
+        wo, wids = twin.attend(q, k=16, segment=3)
+        rows = (gids == wids).all(1)
+        np.testing.assert_allclose(go[rows], wo[rows], rtol=1e-4, atol=1e-5)

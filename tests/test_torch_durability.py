@@ -9,8 +9,10 @@ wrote (`PackedIVF` included). Inside the port: the JAX package's round
 trips, corruption cases, log unit tests, crash matrices (every crash point
 reopens bit for bit to the last committed state or the next one) and its
 two true-crash subprocesses, injecting through `repro_torch.faults`; the
-serving points; the `KNNMemory` kind refused by name. n <= 2,000, d = 16,
-inputs made by numpy from a seed.
+serving points. The `KNNMemory` kind (byte-identical to JAX's, each
+package opening the other's) and a `ServingFrontend` snapshot with tenants
+opened by the other package. n <= 2,000, d = 16, inputs made by numpy from
+a seed.
 """
 import json
 import os
@@ -261,17 +263,131 @@ def test_logs_are_byte_identical_and_each_package_replays_the_other(
         e.index._wal.close()
 
 
-def test_knn_memory_snapshot_is_refused_by_name(rng, tmp_path):
-    """The KNNMemory kind is not ported yet: loading one names the roadmap
-    item, and never passes as corrupt or as another kind."""
-    from repro.serve.knn_memory import KNNMemory
-    Kv = rng.normal(size=(200, 8)).astype(np.float32)
-    mem = KNNMemory.build(Kv, Kv, n_partitions=4)
+# ------------------------------------ KNNMemory and ServingFrontend files
+def knn_fields(mem):
+    """A JAX KNNMemory's state as convert.knn_memory_from_numpy's fields."""
+    m = mem.index
+    index = {k: getattr(m, k) for k in STATE + COUNTS + (
+        "centroids", "spill_mode", "lam", "n_spills", "compact_threshold")}
+    index["pq.centers"] = None if m.pq is None else np.asarray(m.pq.centers)
+    return {"index": index, "values": mem.values, "segments": mem.segments,
+            "engine": mem.engine, "top_t": mem.top_t}
+
+
+def assert_same_memory(a, b):
+    for k in STATE + ("centroids",):
+        np.testing.assert_array_equal(_np(getattr(a.index, k)), _np(getattr(b.index, k)),
+                                      err_msg=k)
+    for k in COUNTS:
+        assert getattr(a.index, k) == getattr(b.index, k), k
+    np.testing.assert_array_equal(_np(a.values), _np(b.values))
+    np.testing.assert_array_equal(_np(a.segments), _np(b.segments))
+    assert (a.engine, a.top_t) == (b.engine, b.top_t)
+
+
+@pytest.fixture(scope="module")
+def knn_pair(rng):
+    """(a JAX KNNMemory after adds and evictions, its port twin)."""
+    from repro.serve.knn_memory import KNNMemory as JaxKNNMemory
+    K = rng.normal(size=(900, D)).astype(np.float32)
+    V = rng.normal(size=(900, D)).astype(np.float32)
+    jm = JaxKNNMemory.build(K[:800], V[:800], n_partitions=8, engine="jit",
+                            segment=np.arange(800) % 4)
+    jm.top_t = 5
+    tm = convert.knn_memory_from_numpy(knn_fields(jm), device="cpu")
+    for m in (jm, tm):
+        m.add(K[800:], V[800:], segment=9)
+        m.remove(np.arange(0, 100, 3))
+        m.remove(np.arange(1, 100, 7), hard=False)
+    assert_same_memory(jm, tm)
+    return jm, tm
+
+
+def test_knn_memory_snapshots_are_byte_identical_to_jax(knn_pair, tmp_path):
+    jm, tm = knn_pair
+    pj, pt = str(tmp_path / "jax"), str(tmp_path / "port")
+    jm.save(pj)
+    tm.save(pt)
+    for name in ("arrays.bin", "manifest.json"):
+        with open(os.path.join(pj, name), "rb") as a, open(os.path.join(pt, name), "rb") as b:
+            assert a.read() == b.read(), name
+    assert json.load(open(os.path.join(pt, "manifest.json")))["manifest"]["kind"] == "KNNMemory"
+
+
+def test_jax_knn_memory_snapshot_opens_in_port(knn_pair, queries, tmp_path):
+    """A JAX-written KNNMemory loads into the port with JAX's bits and
+    retrieves as the port's own twin (the kind JAX's PR 18 loader refused)."""
+    from repro_torch.serve.knn_memory import KNNMemory
+    jm, tm = knn_pair
     p = str(tmp_path / "mem")
-    mem.save(p)
-    snap = os.path.join(p, "index") if os.path.isdir(os.path.join(p, "index")) else p
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        load_snapshot(snap, device="cpu")
+    jm.save(p)
+    got = KNNMemory.open(p, device="cpu")
+    assert_same_memory(got, jm)
+    obj, _ = load_snapshot(p, expect_kind="KNNMemory", device="cpu")
+    assert_same_memory(obj, jm)
+    for kw in (dict(), dict(segment=9), dict(recency=50)):
+        np.testing.assert_array_equal(got.retrieve(queries, k=K, **kw)[0],
+                                      tm.retrieve(queries, k=K, **kw)[0])
+
+
+def test_port_knn_memory_snapshot_opens_in_jax(knn_pair, queries, tmp_path):
+    from repro.serve.knn_memory import KNNMemory as JaxKNNMemory
+    jm, tm = knn_pair
+    p = str(tmp_path / "mem")
+    tm.save(p)
+    got = JaxKNNMemory.open(p)
+    assert_same_memory(got, tm)
+    for kw in (dict(), dict(segment=9)):
+        np.testing.assert_array_equal(got.retrieve(queries, k=K, **kw)[0],
+                                      jm.retrieve(queries, k=K, **kw)[0])
+
+
+def _frontend_pair(jax_base):
+    """(a JAX ServingFrontend over a fresh copy of jax_base, the port's
+    over its twin), each with two tenants."""
+    from repro.serve.frontend import ServingFrontend as JaxServingFrontend
+    from repro_torch.serve.frontend import ServingFrontend
+    jm, tm = fresh_pair(jax_base)
+    fj = JaxServingFrontend(JaxAnnEngine(jm, top_t=6, rerank_budget=64),
+                            policy="local", max_batch=48, max_delay_ms=3.0)
+    ft = ServingFrontend(AnnEngine(tm, top_t=6, rerank_budget=64),
+                         policy="local", max_batch=48, max_delay_ms=3.0)
+    for fe in (fj, ft):
+        fe.register_tenant("acme", ids=np.arange(0, N0, 3))
+        fe.register_tenant("b", mask=np.arange(N0) % 5 == 0)
+    return fj, ft
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_frontend_snapshot_opens_in_the_other_package(jax_base, queries, tmp_path,
+                                                      writer):
+    """A ServingFrontend snapshot with tenants, written by either package,
+    opens in the other with the same config and tenant masks, and serves
+    each tenant as the writer did (ids equal on every slot)."""
+    from repro.serve.api import SearchParams as JaxSearchParams
+    from repro.serve.frontend import ServingFrontend as JaxServingFrontend
+    from repro_torch.serve.api import SearchParams
+    from repro_torch.serve.frontend import ServingFrontend
+    fj, ft = _frontend_pair(jax_base)
+    src, P = (fj, JaxSearchParams) if writer == "jax" else (ft, SearchParams)
+    p = str(tmp_path / "fe")
+    want = {t: src.submit(queries, P(k=K, tenant=t)).result(timeout=60).ids
+            for t in ("acme", "b")}
+    src.save(p)
+    fj.close()
+    ft.close()
+    other = (ServingFrontend.open(p, device="cpu") if writer == "jax"
+             else JaxServingFrontend.open(p))
+    Po = SearchParams if writer == "jax" else JaxSearchParams
+    try:
+        assert (other.max_batch, other.max_delay_ms) == (48, 3.0)
+        assert other.tenants.tenants == ["acme", "b"]
+        assert (other.engine.top_t, other.engine.rerank_budget) == (6, 64)
+        for t in ("acme", "b"):
+            np.testing.assert_array_equal(
+                other.submit(queries, Po(k=K, tenant=t)).result(timeout=60).ids, want[t])
+    finally:
+        other.close()
 
 
 # --------------------------------------------------- the port on its own

@@ -43,7 +43,9 @@ def test_every_port_module_imports_without_jax():
                      "repro_torch.kernels._build", "repro_torch.core.kmr",
                      "repro_torch.core.analysis", "repro_torch.faults",
                      "repro_torch.ckpt.faults", "repro_torch.ckpt.index_store",
-                     "repro_torch.ckpt.wal"):
+                     "repro_torch.ckpt.wal", "repro_torch.serve.frontend",
+                     "repro_torch.serve.health", "repro_torch.serve.knn_memory",
+                     "repro_torch.core.distributed"):
             assert name in names, (name, names)
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k, v in sys.modules.items() if v is not None)
