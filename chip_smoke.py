@@ -158,7 +158,35 @@ just after, and fails if one of its kernels was never launched:
      spill_mode="none" memory's - 0.02; the decoded memory saved and
      reopened equal bit for bit, retrievals equal on every slot (kernels:
      Lloyd, vq_assign, soar_assign);
- 16. each kernel against its plain PyTorch version on the paths' own
+ 16. the shard-parallel search at the JAX package's production
+     shard (src/repro/launch/ann_dryrun.py: 1,000,000 vectors and 2,500
+     partitions a shard, d = 100, 1,024 queries, PQ m = d / 4 = 25), four
+     shards on the one card (4,000,000 vectors from make_manifold(seed + 7)):
+     build_sharded_ivf_pq (SOAR lam=1, f32 rerank) and the same four
+     builds with router="tree" at its defaults (50 supers, t_route 7),
+     stacked by stack_tree_routers (their stacks equal build_sharded_ivf_pq's
+     bit for bit), seconds of each; make_sharded_assign over
+     [cuda:0, cuda:0] equal to one assign_fused call on every row; the
+     f32 and PQ makers (top_t 40, final_k 10, rerank_k 256, q_chunk 128),
+     flat and tree-routed, and filtered through shard_filters by a seeded
+     20% mask: cold, then five warm runs (median seconds, QPS, the merge's
+     device ms and the local search's ms apart), recall@10 against exact
+     search over all 4,000,000 vectors >= 0.85 (f32, PQ), >= 0.70 and
+     >= 0.65 (tree f32, tree PQ: the JAX package's bars), filtered recall
+     against the filtered exact top 10 >= 0.85 with every id in the mask;
+     the PQ and tree-routed searches through the plain probe scorer and
+     plain route agree on >= 99% of slots; HealthTracker masks: all ones
+     gives the same bits, shard 2 down returns none of its ids, no -1,
+     and every healthy answer of the full search; save_sharded of the four
+     shards, load_sharded onto the card, the re-stack and its search
+     equal bit for bit (bytes, seconds, GB/s); then two ranks of a gloo
+     group (processes, file store, GLOO_SOCKET_IFNAME=lo, a time limit
+     on the wait) each load the envelope, keep their two shards
+     (local_shards) and run make_distributed_search_pq(group=...): both
+     ranks' ids and scores equal the in-process search bit for bit, with
+     each rank's collective ms. Peak memory and the phase's seconds
+     (kernels: Lloyd, vq_assign, soar_assign, tree_route, pq_score_probes);
+ 17. each kernel against its plain PyTorch version on the paths' own
      inputs, with its time (CUDA events), the plain version's time and the
      least time the card could take: the larger of bytes / 3.35 TB/s and
      the operations' time, where f32 products (x·cᵀ) count at the TF32
@@ -187,9 +215,11 @@ just after, and fails if one of its kernels was never launched:
      count and its maximum SM clock (nvidia-smi); then the plain-torch work
      of phases 9-10 timed the same way at the build's shapes, each beside
      its calls and its bound (bytes / 3.35 TB/s against f32 operations /
-     67 TFLOP/s), on a "plain work" line. "launches" of a kernel sum every
-     driven path above but the filtered one;
- 17. the {"kernels": [...]} line, then the device line, last.
+     67 TFLOP/s), on a "plain work" line; the probe scorer's record also
+     gives it at phase 16's m = 25 ("m25", one 64-query tile of shard 0).
+     "launches" of a kernel sum every driven path above but the filtered
+     one of phase 5;
+ 18. the {"kernels": [...]} line, then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package (src/repro).
 """
@@ -236,6 +266,11 @@ MEM_TOP_T = 32                     # partitions probed: 3% of c = 1,024
 SPILL_NQ = 512                     # queries of the SOAR-against-none check at top_t 2
 ANISO_T = 0.2                      # ScaNN's glove-100-angular anisotropic threshold
 DENSE_ROWS = 1_000_000             # code rows of the dense kernel check
+# shard-parallel phase: the JAX package's production shard (src/repro/launch/ann_dryrun.py:
+# 1,000,000 vectors and 2,500 partitions a shard, d = 100, 1,024 queries, PQ m = d / 4)
+SH_D, SH_N, SH_C, SH_M, SH_NQ = 4, 1_000_000, 2_500, 25, 1024
+SH_QCHUNK, SH_FILTER, SH_DOWN = 128, 0.2, 2   # JAX's q_chunk, filter share, the shard down
+RANK_TIMEOUT = 300                 # seconds the two gloo ranks may take
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S = 3.35e12, 67e12, 495e12
 SMEM_WORDS_CLK = 32    # 4-byte words an SM's shared memory delivers a clock (128 B)
 DEVICE = "cuda"
@@ -428,16 +463,68 @@ def dense_scan(pq_score, luts, Qb, idx, part, k):
     return torch.topk(best, k, dim=1).indices
 
 
+def rank_worker(args) -> int:
+    """One rank of the shard-parallel phase's gloo group (run by that phase
+    as `chip_smoke.py --rank R --world W --workdir DIR`): load the shard
+    envelope DIR/env onto the card, re-stack it, keep this rank's block,
+    search DIR/q.pt through make_distributed_search_pq(group=...) and save
+    the result and times to DIR/rank<R>.pt."""
+    from datetime import timedelta
+    import torch.distributed as dist
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.kernels import _build
+    from repro_torch.utils import set_f32_precision
+    set_f32_precision()
+    _build.library()
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"file://{args.workdir}/store",
+                            rank=args.rank, world_size=args.world,
+                            timeout=timedelta(seconds=RANK_TIMEOUT))
+    out = {"init_s": time.perf_counter() - t0}
+    g = dist.group.WORLD
+    shards, _ = dist_mod.load_sharded(f"{args.workdir}/env", device=DEVICE)
+    ivf = dist_mod.local_shards(dist_mod.sharded_from_indexes_pq(shards), g)
+    del shards
+    torch.cuda.empty_cache()
+    sync()
+    out["load_s"] = time.perf_counter() - t0 - out["init_s"]
+    Q = torch.load(f"{args.workdir}/q.pt").to(DEVICE)
+    fn = dist_mod.make_distributed_search_pq(top_t=TOP_T, final_k=FINAL_K,
+                                             rerank_k=BUDGET, q_chunk=SH_QCHUNK, group=g)
+    fn(ivf, Q)                                   # warm
+    gather_s = []
+    real = dist_mod._all_gather
+
+    def timed_gather(*a):
+        r, dt = timed(lambda: real(*a))
+        gather_s.append(dt)
+        return r
+
+    with plain_version(dist_mod, "_all_gather", timed_gather):
+        (ids, sc), out["search_s"] = timed(lambda: fn(ivf, Q))
+    out.update(ids=ids.cpu(), scores=sc.cpu(), gather_ms=sum(gather_s) * 1e3,
+               local_shards=int(ivf.local_base.shape[0]),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    torch.save(out, f"{args.workdir}/rank{args.rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", type=Path, default=None,
                     help="checkout of the parent commit: time its route and "
                          "dense kernels beside this one's")
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--workdir", type=str, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.rank is not None:
+        return rank_worker(args)
 
     from repro_torch import faults
     from repro_torch.ckpt import CorruptSnapshotError, MutationWAL
@@ -452,7 +539,12 @@ def main() -> int:
     from repro_torch.core.build import assign_shards
     from repro_torch.core.kmeans import train_kmeans
     from repro_torch.core.mutable import MutableIVF
-    from repro_torch.core.distributed import make_replicated_search
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.core.distributed import (
+        build_sharded_ivf_pq, load_sharded, make_distributed_search,
+        make_distributed_search_pq, make_replicated_search, make_sharded_assign,
+        save_sharded, shard_filters, shard_generator, sharded_from_indexes,
+        sharded_from_indexes_pq, stack_tree_routers)
     from repro_torch.core.search import pad_queries, search_numpy
     from repro_torch.core.router import FlatRouter
     from repro_torch.data.vectors import make_manifold
@@ -466,11 +558,12 @@ def main() -> int:
     from repro_torch.kernels.vq_assign import vq_assign
     from repro_torch.quant import anisotropic as aniso_mod
     from repro_torch.quant.int8 import int8_quantize
-    from repro_torch.quant.pq import pq_lut
+    from repro_torch.quant.pq import PQCodebook, pq_lut
     from repro_torch.serve.api import (DeadlineExceededError, FrontendClosedError,
                                        OverloadedError, SearchParams)
     from repro_torch.serve.engine import AnnEngine
     from repro_torch.serve.frontend import ServingFrontend
+    from repro_torch.serve.health import HealthTracker
     from repro_torch.serve.knn_memory import KNNMemory, exact_topk_attention
     from repro_torch.utils import set_f32_precision, topk_first, topk_inner_product
 
@@ -1592,7 +1685,210 @@ def main() -> int:
     assert msum["reopened_equal"] and msum["reopened_retrieval_equal"], \
         "the reopened memory differs from the saved one"
 
-    # 16. each kernel against its plain version, on the paths' inputs
+    # 16. the shard-parallel search at the JAX dry run's per-shard size
+    def shard_phase(tmp):
+        """Build four 1,000,000-vector shards, search them every way against
+        exact search and the plain kernels, degrade one, save and reload
+        the envelope, serve it from two gloo ranks → (numbers, one m = 25
+        probe-scorer tile's arguments)."""
+        out = {}
+        torch.cuda.reset_peak_memory_stats()
+        out["resident_before_bytes"] = torch.cuda.memory_allocated()
+        t_phase = time.perf_counter()
+        n = SH_D * SH_N
+        sd = make_manifold(args.seed + 7, n, D, nq=SH_NQ, device=DEVICE)
+        ivq, out["build_pq_s"] = timed(lambda: build_sharded_ivf_pq(
+            args.seed, sd.X, SH_D, SH_C, SH_M, device=DEVICE))
+        idxs, out["build_tree_s"] = timed(lambda: [build_ivf_sharded(
+            shard_generator(args.seed, s), sd.X[s * SH_N:(s + 1) * SH_N], SH_C,
+            pq_subspaces=SH_M, train_iters=8, router="tree", device=DEVICE)
+            for s in range(SH_D)])
+        srt = stack_tree_routers([i.router for i in idxs])
+        out["tree_build_fields_differing"] = [
+            f for f, a, b in zip(ivq._fields, sharded_from_indexes_pq(idxs), ivq)
+            if not torch.equal(a, b)]
+        out["tree_build_stacks_equal"] = not out["tree_build_fields_differing"]
+        iv = sharded_from_indexes(idxs)
+        out["f32_stack_equals_pq_fields"] = all(
+            torch.equal(getattr(iv, f), getattr(ivq, f)) for f in iv._fields)
+        _, c, pmax, m = ivq.part_codes.shape
+        out.update(pmax=pmax, code_block_bytes=c * pmax * m,
+                   code_blocks_on_16_bytes=all(ivq.part_codes[s].data_ptr() % 16 == 0
+                                               for s in range(SH_D)),
+                   n_super=srt.super_centroids.shape[1], cmax=srt.children.shape[2])
+        # the build-side fan-out over the card twice against one call
+        C0 = ivq.centroids[0]
+        got, out["sharded_assign_s"] = timed(lambda: make_sharded_assign(
+            [DEVICE + ":0", DEVICE + ":0"])(sd.X, C0))
+        out["sharded_assign_equal"] = torch.equal(got, soar_mod.assign_fused(sd.X, C0))
+        del got
+        gt = true_neighbors(sd.X, sd.Q, k=FINAL_K, chunk=65_536)
+        mask = torch.rand(n, generator=torch.Generator().manual_seed(args.seed)) < SH_FILTER
+        keep = torch.nonzero(mask).reshape(-1).to(DEVICE)
+        _, fidx = topk_inner_product(sd.Q, sd.X[keep], FINAL_K, chunk=65_536)
+        fgt = keep[fidx.long()].to(torch.int32)
+        filt = shard_filters(mask, [SH_N] * SH_D).to(DEVICE)
+        maskd = mask.to(DEVICE)
+        pq_kw = dict(top_t=TOP_T, final_k=FINAL_K, rerank_k=BUDGET, q_chunk=SH_QCHUNK)
+        makers = {
+            "f32": (make_distributed_search(top_t=TOP_T, final_k=FINAL_K), iv, ()),
+            "pq": (make_distributed_search_pq(**pq_kw), ivq, ()),
+            "tree_f32": (make_distributed_search(top_t=TOP_T, final_k=FINAL_K,
+                                                 with_router=True), iv, (srt,)),
+            "tree_pq": (make_distributed_search_pq(with_router=True, **pq_kw), ivq, (srt,)),
+            "filtered_f32": (make_distributed_search(top_t=TOP_T, final_k=FINAL_K,
+                                                     with_filter=True), iv, (filt,)),
+            "filtered_pq": (make_distributed_search_pq(with_filter=True, **pq_kw), ivq,
+                            (filt,)),
+        }
+        merges = []
+        real_merge = dist_mod._merge
+
+        def timed_merge(*a):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            r = real_merge(*a)
+            ev[1].record()
+            merges.append(ev)
+            return r
+
+        results = {}
+        for name, (fn, ivf, extra) in makers.items():
+            (ids, sc), cold = timed(lambda: fn(ivf, sd.Q, *extra))
+            runs = []
+            for _ in range(5):
+                merges.clear()
+                with plain_version(dist_mod, "_merge", timed_merge):
+                    _, dt = timed(lambda: fn(ivf, sd.Q, *extra))
+                runs.append((dt, merges[0][0].elapsed_time(merges[0][1])))
+            dt, merge_ms = sorted(runs)[2]
+            results[name] = (ids, sc)
+            out[name] = {"cold_s": cold, "warm_s_runs": [r[0] for r in runs],
+                         "warm_s": dt, "qps": SH_NQ / dt, "merge_ms": merge_ms,
+                         "local_search_ms": dt * 1e3 - merge_ms,
+                         "recall_at_10": recall_at_k(ids, fgt if "filtered" in name else gt,
+                                                     FINAL_K)}
+            if "filtered" in name:
+                out[name]["ids_outside_filter"] = int((~maskd[ids[ids >= 0].long()]).sum())
+        # the same makers on the plain versions of the kernels
+        def plain_route():
+            return plain_version(router_mod, "tree_route",
+                                 lambda Q, SC, CC, CH, t, **_: ref.tree_route_ref(Q, SC, CC, CH, t))
+
+        for name in ("pq", "tree_f32", "tree_pq"):
+            fn, ivf, extra = makers[name]
+            with ExitStack() as st:
+                st.enter_context(plain_version(search, "pq_score_probes",
+                                               ref.pq_score_probes_ref))
+                if "tree" in name:
+                    st.enter_context(plain_route())
+                pids, _ = fn(ivf, sd.Q, *extra)
+            out[name]["ids_agree_plain_kernels"] = float(
+                (pids == results[name][0]).float().mean())
+        # degraded fan-out: all-ones is the plain bits; shard SH_DOWN down
+        h = HealthTracker(fail_threshold=1)
+        ones = h.mask(SH_D)
+        h.failure(SH_DOWN)
+        down = h.mask(SH_D)
+        lo, hi = SH_DOWN * SH_N, (SH_DOWN + 1) * SH_N
+        out["health"] = {}
+        for name, fn, ivf in (
+                ("f32", make_distributed_search(top_t=TOP_T, final_k=FINAL_K,
+                                                with_health=True), iv),
+                ("pq", make_distributed_search_pq(with_health=True, **pq_kw), ivq)):
+            ids0, sc0 = results[name]
+            ids1, sc1 = fn(ivf, sd.Q, ones)
+            ids2, _ = fn(ivf, sd.Q, down)
+            healthy = (ids0 < lo) | (ids0 >= hi)
+            survived = ((ids0[:, :, None] == ids2[:, None, :]).any(-1) | ~healthy).all()
+            out["health"][name] = {
+                "all_ones_bitwise": torch.equal(ids0, ids1) and torch.equal(sc0, sc1),
+                "down_shard_ids": int(((ids2 >= lo) & (ids2 < hi)).sum()),
+                "minus_one_ids": int((ids2 < 0).sum()),
+                "healthy_answers_survive": bool(survived)}
+        # the envelope: save the four shards, load, re-stack, search
+        env = os.path.join(tmp, "env")
+        _, out["envelope_save_s"] = timed(lambda: save_sharded(env, idxs))
+        out["envelope_bytes"] = sum(os.path.getsize(os.path.join(r, f))
+                                    for r, _, fs in os.walk(env) for f in fs)
+        (loaded, _), out["envelope_load_s"] = timed(lambda: load_sharded(env, device=DEVICE))
+        back, out["restack_s"] = timed(lambda: sharded_from_indexes_pq(loaded))
+        out["envelope_save_gb_s"] = out["envelope_bytes"] / out["envelope_save_s"] / 1e9
+        out["envelope_load_gb_s"] = out["envelope_bytes"] / out["envelope_load_s"] / 1e9
+        out["restack_equal"] = all(torch.equal(a, b) for a, b in zip(back, ivq)) and all(
+            torch.equal(a, b) for a, b in zip(stack_tree_routers([i.router for i in loaded]),
+                                              srt))
+        bids, bsc = makers["pq"][0](back, sd.Q)
+        out["restack_search_equal"] = (torch.equal(bids, results["pq"][0])
+                                       and torch.equal(bsc, results["pq"][1]))
+        del loaded, back, idxs
+        torch.cuda.empty_cache()
+        # two gloo ranks, each serving its two shards from the envelope
+        torch.save(sd.Q.cpu(), os.path.join(tmp, "q.pt"))
+        env_vars = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", str(r), "--world", "2",
+             "--workdir", tmp], env=env_vars, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=RANK_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        out["ranks_s"] = time.perf_counter() - t0
+        for p, (o, e) in zip(procs, logs):
+            assert p.returncode == 0, f"a gloo rank failed ({p.returncode}): {e[-3000:]}"
+        want = tuple(t.cpu() for t in results["pq"])
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+        out["ranks"] = [{k: v for k, v in r.items() if k not in ("ids", "scores")}
+                        for r in ranks]
+        out["ranks_equal_in_process"] = [torch.equal(r["ids"], want[0])
+                                         and torch.equal(r["scores"], want[1])
+                                         for r in ranks]
+        # one tile of shard 0's probes at m = 25, for the kernel phase
+        Qt = sd.Q[:dist_mod.TILE_ROWS]
+        psc, parts = FlatRouter(ivq.centroids[0]).route(Qt, TOP_T)
+        probe = (pq_lut(PQCodebook(ivq.pq_centers[0]), Qt), ivq.part_codes[0].clone(),
+                 ivq.extent[0].clone(), parts, psc)
+        out["phase_s"] = time.perf_counter() - t_phase
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        return out, probe
+
+    with tempfile.TemporaryDirectory() as tmp:
+        (ssum, probe25), slaunch = drive(
+            wrappers, ("pq_score_probes", "tree_route", "vq_assign", "soar_assign",
+                       "lloyd_sweep"), lambda: shard_phase(tmp))
+    path_launches.update(slaunch)
+    ssum["launches"] = slaunch
+    torch.cuda.empty_cache()
+    print("shard-parallel: " + json.dumps(ssum))
+    assert ssum["tree_build_stacks_equal"], \
+        f"the tree-routed build's stack differs in {ssum['tree_build_fields_differing']}"
+    assert ssum["f32_stack_equals_pq_fields"], "the f32 stack differs from the PQ stack"
+    assert ssum["code_blocks_on_16_bytes"], "a shard's code block is off 16 bytes"
+    assert ssum["sharded_assign_equal"], "make_sharded_assign differs from assign_fused"
+    for name, bar in (("f32", 0.85), ("pq", 0.85), ("tree_f32", 0.70), ("tree_pq", 0.65),
+                      ("filtered_f32", 0.85), ("filtered_pq", 0.85)):
+        assert ssum[name]["recall_at_10"] >= bar, \
+            f"shard-parallel {name} recall@10 {ssum[name]['recall_at_10']} < {bar}"
+    for name in ("filtered_f32", "filtered_pq"):
+        assert ssum[name]["ids_outside_filter"] == 0, f"{name}: an id outside the filter"
+    for name in ("pq", "tree_f32", "tree_pq"):
+        assert ssum[name]["ids_agree_plain_kernels"] >= 0.99, \
+            f"{name}: ids agree with the plain kernels on {ssum[name]['ids_agree_plain_kernels']}"
+    for name, hs in ssum["health"].items():
+        assert hs["all_ones_bitwise"], f"{name}: an all-ones health mask changed the bits"
+        assert hs["down_shard_ids"] == 0 and hs["minus_one_ids"] == 0, \
+            f"{name}: the degraded search returned a down shard's id or a -1: {hs}"
+        assert hs["healthy_answers_survive"], f"{name}: a healthy answer was lost"
+    assert ssum["restack_equal"] and ssum["restack_search_equal"], \
+        "the re-stacked envelope differs from the saved stack"
+    assert all(ssum["ranks_equal_in_process"]), \
+        f"the gloo ranks' results differ from the in-process search: {ssum['ranks_equal_in_process']}"
+
+    # 17. each kernel against its plain version, on the paths' inputs
     kernels = []
 
     def record(name, source, replaces, err, ms, plain_ms, nbytes, ops_, mm_ops=0.0,
@@ -1646,14 +1942,33 @@ def main() -> int:
     assert torch.equal(torch.isinf(got), torch.isinf(want)), "pq_score_probes -inf slots"
     assert torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5), "pq_score_probes"
     code_bytes = int(packed.extent[parts].sum()) * M     # the rows probed
+
+    def probe_bytes(pa, out, code_bytes):
+        return (code_bytes + pa[0].numel() * 4 + pa[3].numel() * 8 + pa[4].numel() * 4
+                + out.numel() * 4)
+
+    # the same kernel at the shard-parallel phase's m = 25 (one byte a
+    # subspace), one tile of shard 0's probes
+    g25, w25 = pq_score_probes(*probe25), ref.pq_score_probes_ref(*probe25)
+    f25 = torch.isfinite(w25)
+    assert torch.equal(torch.isinf(g25), torch.isinf(w25)), "pq_score_probes m=25 -inf slots"
+    assert torch.allclose(g25[f25], w25[f25], rtol=1e-5, atol=1e-5), "pq_score_probes m=25"
+    cb25 = int(probe25[2][probe25[3]].sum()) * SH_M
+    b25 = bound(probe_bytes(probe25, g25, cb25), cb25)
+    ms25 = time_ms(lambda: pq_score_probes(*probe25))
+    m25 = {"shape": [probe25[0].shape[0], TOP_T, probe25[1].shape[1], SH_M], "ms": ms25,
+           "plain_ms": time_ms(lambda: ref.pq_score_probes_ref(*probe25), 3),
+           "bound_ms": b25[0], "bound_by": b25[1], "share": b25[0] / ms25,
+           "max_abs_err": float((g25[f25] - w25[f25]).abs().max()),
+           "probed_code_bytes": cb25}
+    del g25, w25
     record("pq_score_probes", "src/repro_torch/csrc/pq_score_probes.cu",
            "src/repro/kernels/pq_score.py:116",
            float((got[fin] - want[fin]).abs().max()),
            time_ms(lambda: pq_score_probes(*pargs)),
            time_ms(lambda: ref.pq_score_probes_ref(*pargs), 3),
-           code_bytes + luts.numel() * 4 + parts.numel() * 8 + psc.numel() * 4
-           + got.numel() * 4, code_bytes, shape=[BQ, TOP_T, pmax, M],
-           probed_code_bytes=code_bytes)
+           probe_bytes(pargs, got, code_bytes), code_bytes, shape=[BQ, TOP_T, pmax, M],
+           probed_code_bytes=code_bytes, m25=m25)
     # kernels 3 and 4: one assignment shard against the trained codebook,
     # and the online inserts' batch of CHURN rows (MutableIVF.add)
     Xs = ds.X[:SHARD].contiguous()
@@ -1859,7 +2174,7 @@ def main() -> int:
               f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
     print("plain work: " + json.dumps(plain))
 
-    # 17. result lines
+    # 18. result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

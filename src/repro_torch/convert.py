@@ -20,7 +20,7 @@ import torch
 from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.mutable import MutableIVF
 from repro_torch.core.router import FlatRouter, TreeRouter
-from repro_torch.core.search import PackedIVF
+from repro_torch.core.search import PackedIVF, slot_extent
 from repro_torch.quant.int8 import Int8Data
 from repro_torch.quant.pq import PQCodebook
 from repro_torch.serve.api import DEFAULT_TOP_T
@@ -118,13 +118,11 @@ def packed_from_numpy(fields: Mapping[str, object], device: Device = None) -> Pa
     _missing(fields, PACKED_FIELDS)
     t = _reader(fields, resolve_device(device))
     ids = t("part_ids", torch.int32)
-    slot = torch.arange(1, ids.shape[1] + 1, dtype=torch.int32, device=ids.device)
-    extent = torch.where(ids >= 0, slot, 0).amax(dim=1).to(torch.int32)
     centers = t("pq.centers", torch.float32)
     return PackedIVF(
         centroids=t("centroids", torch.float32), part_ids=ids,
         part_codes=t("part_codes", torch.uint8), sizes=t("sizes", torch.int32),
-        extent=extent, pq=PQCodebook(centers) if centers is not None else None,
+        extent=slot_extent(ids), pq=PQCodebook(centers) if centers is not None else None,
         rerank=t("rerank", torch.float32), router=_router(fields, t))
 
 

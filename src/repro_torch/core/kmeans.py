@@ -28,14 +28,34 @@ class KMeansResult(NamedTuple):
     history: np.ndarray                    # per-iteration distortion
 
 
+def _d2_draw(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF draws: for each row of weights (m, n) ≥ 0, an index i
+    with probability ∝ weights[i], from one uniform u (m,) in [0, 1).
+
+    The CDF is an integer one: each weight scaled to 2**40 of its row's
+    largest (less for n > 2**22, so the sum stays below 2**62) and
+    truncated, then an int64 cumsum. That sum is exact, so a seed draws
+    the same index on every run (`torch.cumsum` of floats on CUDA does not
+    promise that: its association follows the timing of its blocks, so two
+    builds of one shard could pick other seeds), and a zero weight is
+    never drawn. A row of zeros draws index 0."""
+    top = weights.amax(-1, keepdim=True)
+    scale = float(2 ** min(40, 62 - weights.shape[-1].bit_length()))
+    cdf = torch.cumsum((weights * (scale / torch.where(top > 0, top, 1.0))).to(torch.int64), -1)
+    total = cdf[:, -1:]
+    t = (u[:, None] * total.to(u.dtype)).to(torch.int64)
+    return torch.searchsorted(cdf, torch.minimum(t, total - 1) + 1)[:, 0]
+
+
 def kmeans_pp_init_batched(gen: torch.Generator, X: torch.Tensor,
                            c: int) -> torch.Tensor:
     """k-means++ seeding of m independent problems X (m, n, d) → (m, c, d).
 
-    Exact D² sampling by inverse CDF: one uniform per pick, cumsum and
-    searchsorted; distances update through ||x||² − 2⟨x, c_new⟩ + ||c_new||²,
-    one GEMV per pick. The random draws are made up front on the host, so
-    the c − 1 sequential picks never wait for the device.
+    Exact D² sampling by inverse CDF: one uniform per pick, an exact
+    integer CDF and searchsorted (`_d2_draw`); distances update through
+    ||x||² − 2⟨x, c_new⟩ + ||c_new||², one GEMV per pick. The random draws
+    are made up front on the host, so the c − 1 sequential picks never
+    wait for the device.
     """
     m, n, d = X.shape
     dev = X.device
@@ -53,9 +73,7 @@ def kmeans_pp_init_batched(gen: torch.Generator, X: torch.Tensor,
     cents[:, 0] = nxt
     min_d = dist_to(nxt)
     for i in range(1, c):
-        cdf = torch.cumsum(min_d, dim=-1)
-        target = (u[i - 1] * cdf[:, -1])[:, None]
-        idx = torch.searchsorted(cdf, target)[:, 0].clamp(max=n - 1)
+        idx = _d2_draw(min_d, u[i - 1])
         nxt = X[rows, idx]
         cents[:, i] = nxt
         min_d = torch.minimum(min_d, dist_to(nxt))
@@ -104,8 +122,7 @@ def kmeans_parallel_init(gen: torch.Generator, X: torch.Tensor, c: int, l: int,
     seeds[0] = P[i0]
     dmin = ((P - P[i0]) ** 2).sum(-1)
     for i in range(1, c):
-        cdf = torch.cumsum(dmin.clamp(min=0.0) * w, 0)
-        idx = torch.searchsorted(cdf, (u[i - 1] * cdf[-1])[None])[0].clamp(max=P.shape[0] - 1)
+        idx = _d2_draw((dmin.clamp(min=0.0) * w)[None], u[i - 1:i])[0]
         seeds[i] = P[idx]
         dmin = torch.minimum(dmin, ((P - P[idx]) ** 2).sum(-1))
 

@@ -54,7 +54,7 @@ from repro_torch.ckpt.wal import (REC_ADD, REC_COMPACT, REC_HARDEN, REC_REMOVE,
                                   read_records)
 from repro_torch.core.build import build_ivf_sharded, spill_plan
 from repro_torch.core.ivf import IVFIndex
-from repro_torch.core.search import PackedIVF
+from repro_torch.core.search import PackedIVF, slot_extent
 from repro_torch.kernels.soar_assign import assign_fused
 from repro_torch.quant.int8 import int8_dequantize
 from repro_torch.quant.pq import PQCodebook, pq_encode
@@ -73,13 +73,6 @@ def _grow_rows(arr: torch.Tensor, n_new: int, fill) -> torch.Tensor:
                      device=arr.device)
     out[:arr.shape[0]] = arr
     return out
-
-
-def _extent(part_ids: torch.Tensor) -> torch.Tensor:
-    """Per row: the last slot holding an id >= 0, plus one (0 when empty)."""
-    slot = torch.arange(1, part_ids.shape[1] + 1, dtype=torch.int32,
-                        device=part_ids.device)
-    return torch.where(part_ids >= 0, slot, 0).amax(dim=1).to(torch.int32)
 
 
 class EpochLRU:
@@ -525,7 +518,7 @@ class MutableIVF:
         if dirty.numel():
             rows = self.part_ids[dirty]
             p.sizes[dirty] = (rows >= 0).sum(1).to(torch.int32)
-            p.extent[dirty] = _extent(rows)
+            p.extent[dirty] = slot_extent(rows)
         self._dirty_parts.zero_()
         return p._replace(router=self._serving_router())
 
@@ -549,7 +542,7 @@ class MutableIVF:
         ids = self.part_ids
         self._packed = PackedIVF(
             self.centroids, ids, self.part_codes,
-            (ids >= 0).sum(1).to(torch.int32), _extent(ids), self.pq,
+            (ids >= 0).sum(1).to(torch.int32), slot_extent(ids), self.pq,
             self.rerank, self._serving_router())
         self._dirty_parts = torch.zeros(ids.shape[0], dtype=torch.bool,
                                         device=self.device)

@@ -63,6 +63,14 @@ class PackedIVF(NamedTuple):
     router: Optional[object] = None
 
 
+def slot_extent(part_ids: torch.Tensor) -> torch.Tensor:
+    """Per partition row (the last axis holds its slots): the last slot
+    holding an id >= 0, plus one (0 when empty) — `PackedIVF.extent`."""
+    slot = torch.arange(1, part_ids.shape[-1] + 1, dtype=torch.int32,
+                        device=part_ids.device)
+    return torch.where(part_ids >= 0, slot, 0).amax(dim=-1).to(torch.int32)
+
+
 def pack_ivf(index: IVFIndex, pmax: Optional[int] = None) -> PackedIVF:
     """Pack an IVFIndex into the dense padded layout (on its device).
 

@@ -317,6 +317,23 @@ def test_kmeans_parallel_init_seeds_are_distinct_and_weighted(data):
     assert len({r.numpy().tobytes() for r in S}) == 32
 
 
+def test_d2_draw_is_an_exact_inverse_cdf():
+    """k-means++ draws from an exact integer CDF: a grid of uniforms lands
+    on each index in proportion to its weight, a zero weight is never
+    drawn, and a row of zeros draws index 0."""
+    w = torch.tensor([[1.0, 0.0, 2.0, 0.0, 1.0], [0.0] * 5])
+    u = torch.linspace(0, 1, 4001)[:-1]
+    idx = torch.stack([kmeans._d2_draw(w, torch.stack([x, x])) for x in u])
+    assert torch.bincount(idx[:, 0], minlength=5).tolist() == [1000, 0, 2000, 0, 1000]
+    assert bool((idx[:, 1] == 0).all())
+    g = torch.Generator().manual_seed(0)
+    w = torch.rand((3, 1000), generator=g)
+    w[:, ::2] = 0.0
+    for _ in range(500):
+        i = kmeans._d2_draw(w, torch.rand(3, generator=g))
+        assert bool((w[torch.arange(3), i] > 0).all())
+
+
 def test_unknown_init_raises(data):
     with pytest.raises(ValueError, match="unknown init"):
         kmeans.train_kmeans(torch.Generator(), _t(data[0][:100]), 4, init="random")

@@ -4,11 +4,12 @@ Each kernel is held against its plain PyTorch version on CUDA tensors,
 and the build + search slice, the tree-routed filtered search and the
 serving slice (online inserts, the pruned router, the delta pack, the host
 engine), snapshots and log replay onto the card, the KMR curve, the
-front-end's coalesced ≡ solo guarantee, tenant bitmaps, replica fan-out
-and the kNN memory on the card against the same slices on the CPU (which
-tests/test_torch_slice.py, test_torch_router.py, test_torch_filtered.py,
-test_torch_durability.py, test_torch_kmr.py, test_torch_frontend.py and
-test_torch_knn_memory.py hold against the JAX package). This
+front-end's coalesced ≡ solo guarantee, tenant bitmaps, replica fan-out,
+the kNN memory and the shard-parallel search on the card against the same
+slices on the CPU (which tests/test_torch_slice.py, test_torch_router.py,
+test_torch_filtered.py, test_torch_durability.py, test_torch_kmr.py,
+test_torch_frontend.py, test_torch_knn_memory.py and
+test_torch_distributed.py hold against the JAX package). This
 file imports nothing of JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -25,6 +26,7 @@ from repro_torch.ckpt import load_snapshot, save_snapshot  # noqa: E402
 from repro_torch.core import (build_ivf, build_ivf_sharded, kmr_curve,  # noqa: E402
                               pack_ivf, rank_statistics, recall_at_k,
                               search_jit_batched, true_neighbors)
+from repro_torch.core import kmeans  # noqa: E402
 from repro_torch.core.kmeans import train_kmeans  # noqa: E402
 from repro_torch.core.mutable import MutableIVF  # noqa: E402
 from repro_torch.core.router import TreeRouter  # noqa: E402
@@ -40,6 +42,7 @@ from repro_torch.kernels.tree_route import tree_route  # noqa: E402
 from repro_torch.kernels.vq_assign import vq_assign  # noqa: E402
 from repro_torch.quant.anisotropic import anisotropic_assign, eta_from_threshold  # noqa: E402
 from repro_torch.quant.int8 import int8_quantize  # noqa: E402
+from repro_torch.core import distributed as dist_mod  # noqa: E402
 from repro_torch.core.distributed import make_replicated_search  # noqa: E402
 from repro_torch.core.search import pad_queries  # noqa: E402
 from repro_torch.serve.api import SearchParams  # noqa: E402
@@ -82,12 +85,13 @@ def probe_case(nq, t, c, pmax, m, seed=0):
 
 # the CPU cases of test_torch_kernels.py, then a search tile (nq = 128) at
 # t = 1, 40 (the flat probe) and 80 (its escalation), partitions of up to
-# 1,506 rows (odd pmax: every head alignment), and m = 160
+# 1,506 rows (odd pmax: every head alignment), m = 160, and m = 25 (the
+# shard-parallel dry run's d / 4, read a byte at a time) at c = 2,500
 @pytest.mark.parametrize("nq,t,c,pmax,m", [
     (3, 4, 6, 7, 5), (8, 5, 10, 33, 16), (4, 3, 5, 40, 50), (5, 2, 4, 1, 16),
     (2, 1, 3, 9, 50), (6, 6, 12, 20, 5),
     (128, 1, 50, 1501, 50), (128, 40, 200, 1506, 50), (128, 80, 200, 1501, 50),
-    (7, 9, 30, 333, 160)])
+    (7, 9, 30, 333, 160), (16, 7, 9, 13, 25), (128, 40, 2500, 801, 25)])
 def test_pq_score_probes_matches_plain(cuda, nq, t, c, pmax, m):
     args = [torch.from_numpy(a).to(cuda) for a in probe_case(nq, t, c, pmax, m)]
     n0 = pq_score_probes.launches
@@ -600,6 +604,27 @@ def test_train_kmeans_modes_on_card(cuda, mode):
         torch.testing.assert_close(card.centroids.norm(dim=1).cpu(), torch.ones(200))
 
 
+def test_d2_draw_on_card_equals_cpu_and_seeding_repeats(cuda):
+    """k-means++ draws from an exact integer CDF: on the card they equal
+    the CPU's draws from the same weights and uniforms, and a seeding of
+    2,500 centroids from 32,768 rows (a 1,000,000-row shard's build)
+    repeats bit for bit. A float cumsum on the card did neither: two
+    builds of one shard could differ in their centroids."""
+    g = torch.Generator().manual_seed(0)
+    w = torch.rand((1, 32_768), generator=g) ** 4
+    w[:, ::7] = 0.0
+    u = torch.rand((2000, 1), generator=g)
+    card = torch.stack([kmeans._d2_draw(w.to(cuda), ui.to(cuda)) for ui in u]).cpu()
+    cpu = torch.stack([kmeans._d2_draw(w, ui) for ui in u])
+    assert torch.equal(card, cpu)
+    assert bool((w[0, card[:, 0]] > 0).all())
+    X = make_manifold(3, 32_768, 100, nq=1, device=cuda).X
+    first = kmeans.kmeans_pp_init(torch.Generator().manual_seed(1), X, 2500)
+    for _ in range(2):
+        assert torch.equal(kmeans.kmeans_pp_init(torch.Generator().manual_seed(1), X, 2500),
+                           first)
+
+
 # ------------------------------------------------------------ serving slice
 @pytest.mark.parametrize("n", [1, 7, 1000])
 def test_assign_fused_online_batches_match_plain(cuda, n):
@@ -934,3 +959,132 @@ def test_knn_memory_on_card_matches_cpu_twin(cuda, tmp_path):
         wo, wids = twin.attend(q, k=16, segment=3)
         rows = (gids == wids).all(1)
         np.testing.assert_allclose(go[rows], wo[rows], rtol=1e-4, atol=1e-5)
+
+
+def _card_shards(seed, n_shards, n_local, d, c, m, **kw):
+    """Per-shard indexes built on the CPU (tree routers of ragged super
+    counts when `router_kw` lists them) and the queries."""
+    ds = make_manifold(seed, n_shards * n_local, d, nq=70, device="cpu")
+    supers = kw.pop("supers", None)
+    idxs = [build_ivf_sharded(dist_mod.shard_generator(seed, s),
+                              ds.X[s * n_local:(s + 1) * n_local], c, pq_subspaces=m,
+                              train_iters=4, device="cpu",
+                              **(dict(router="tree", router_kw=dict(n_super=supers[s]))
+                                 if supers else {}), **kw)
+            for s in range(n_shards)]
+    return idxs, ds.Q
+
+
+def test_sharded_searches_on_card_match_cpu(cuda):
+    """Both makers, flat and tree-routed, filtered and with a shard down, on
+    stacks moved to the card against the same calls on the CPU; the probe
+    scorer and the tree route ran."""
+    idxs, Q = _card_shards(3, 4, 2_000, 32, 16, 8, supers=[3, 4, 5, 4])
+    iv, ivq = dist_mod.sharded_from_indexes(idxs), dist_mod.sharded_from_indexes_pq(idxs)
+    srt = dist_mod.stack_tree_routers([i.router for i in idxs])
+    filt = dist_mod.shard_filters(np.random.default_rng(0).random(8_000) < 0.3,
+                                  [2_000] * 4)
+    down = np.array([1, 1, 0, 1], np.uint8)
+    cases = [
+        (dist_mod.make_distributed_search(top_t=6), iv, ()),
+        (dist_mod.make_distributed_search(top_t=6, with_router=True), iv, (srt,)),
+        (dist_mod.make_distributed_search_pq(top_t=6, rerank_k=64, q_chunk=70,
+                                             with_filter=True, with_health=True),
+         ivq, (filt, down)),
+        (dist_mod.make_distributed_search_pq(top_t=6, rerank_k=64, q_chunk=70,
+                                             with_router=True, t_route=5), ivq, (srt,)),
+    ]
+    for i, (fn, ivf, extra) in enumerate(cases):
+        n0 = (pq_score_probes.launches, tree_route.launches)
+        gi, gs = fn(ivf.to(cuda), Q.to(cuda), *(e.to(cuda) if isinstance(e, torch.Tensor)
+                                               or hasattr(e, "_fields") else e
+                                               for e in extra))
+        torch.cuda.synchronize()
+        assert gi.device.type == "cuda"
+        if ivf is ivq:
+            assert pq_score_probes.launches > n0[0], i
+        if extra and extra[0] is srt:
+            assert tree_route.launches > n0[1], i
+        wi, ws = fn(ivf, Q, *extra)
+        agree = (gi.cpu() == wi).float().mean().item()
+        assert agree >= 0.999, (i, agree)
+        same = (gi.cpu() == wi) & torch.isfinite(ws)
+        torch.testing.assert_close(gs.cpu()[same], ws[same], rtol=1e-5, atol=1e-5)
+
+
+def test_sharded_pq_search_on_card_takes_unaligned_shard_blocks(cuda):
+    """At m = 25, c = 9 a shard's (c, pmax, m) block is c·pmax·m bytes, not
+    a multiple of 16 here: a plain stack's shard 1 starts off 16 bytes and
+    the probe scorer refuses it; the port's stack keeps every block on 16
+    bytes, so the sharded search runs and agrees with the CPU."""
+    idxs, Q = _card_shards(5, 3, 1_500, 50, 9, 25)
+    ivq = dist_mod.sharded_from_indexes_pq(idxs)
+    _, c, pmax, m = ivq.part_codes.shape
+    assert (c * pmax * m) % 16, "the case must not align by chance"
+    on_card = ivq.to(cuda)
+    assert all(on_card.part_codes[s].data_ptr() % 16 == 0 for s in range(3))
+    plain = on_card.part_codes.contiguous()
+    assert plain[1].data_ptr() % 16
+    luts = torch.zeros((2, m, 16), device=cuda)
+    parts = torch.zeros((2, 1), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        pq_score_probes(luts, plain[1], on_card.extent[1], parts,
+                        torch.zeros((2, 1), device=cuda))
+    fn = dist_mod.make_distributed_search_pq(top_t=4, rerank_k=32, q_chunk=70)
+    n0 = pq_score_probes.launches
+    gi, _ = fn(on_card, Q.to(cuda))
+    torch.cuda.synchronize()
+    assert pq_score_probes.launches > n0
+    wi, _ = fn(ivq, Q)
+    assert (gi.cpu() == wi).float().mean().item() >= 0.999
+
+
+def test_stacked_tree_tables_with_padded_supers_route_as_plain(cuda):
+    """Shards with 2 to 6 supers stacked to S = 6: the padded supers are
+    zero rows (score 0, above the real supers' negative scores) whose
+    children are all -1. Each shard's tables route on the card as the
+    plain version does, at t_route = S too (every padded super chosen),
+    and the router's starved slots are partition 0 at -inf."""
+    idxs, Q = _card_shards(6, 4, 1_000, 16, 12, 4, supers=[2, 6, 3, 4])
+    srt = dist_mod.stack_tree_routers([i.router for i in idxs]).to(cuda)
+    Qc = Q.to(cuda)
+    S = srt.super_centroids.shape[1]
+    for s in range(4):
+        tabs = (srt.super_centroids[s], srt.child_centroids[s], srt.children[s])
+        for tr in (1, 3, S):
+            gs, gi = tree_route(Qc, *tabs, tr)
+            ws, wi = ref.tree_route_ref(Qc, *tabs, tr)
+            assert torch.equal(gi, wi), (s, tr)
+            fin = torch.isfinite(ws)
+            assert torch.equal(fin, torch.isfinite(gs))
+            torch.testing.assert_close(gs[fin], ws[fin], rtol=1e-5, atol=1e-5)
+        local = (srt.super_centroids[s], srt.children[s], srt.child_centroids[s])
+        for tr in (1, S):
+            v, parts = dist_mod._local_router(idxs[s].centroids.to(cuda), local,
+                                              tr).route(Qc, 12)
+            wv, wp = dist_mod._local_router(idxs[s].centroids,
+                                            tuple(t.cpu() for t in local), tr).route(Q, 12)
+            assert torch.equal(parts.cpu(), wp), (s, tr)
+            starved = torch.isneginf(v)
+            assert torch.equal(starved.cpu(), torch.isneginf(wv))
+            assert bool((parts[starved] == 0).all())
+
+
+def test_sharded_search_under_a_gloo_group_on_card(cuda, tmp_path):
+    """One gloo rank holding every shard on the card: the group form (gloo's
+    all_gather of CUDA tensors) gives the in-process bits."""
+    import torch.distributed as dist
+    idxs, Q = _card_shards(4, 2, 1_000, 16, 8, 4)
+    ivq = dist_mod.sharded_from_indexes_pq(idxs).to(cuda)
+    Qc = Q.to(cuda)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        g = dist.group.WORLD
+        got = dist_mod.make_distributed_search_pq(top_t=4, rerank_k=32, q_chunk=70,
+                                                  group=g)(dist_mod.local_shards(ivq, g), Qc)
+    finally:
+        dist.destroy_process_group()
+    want = dist_mod.make_distributed_search_pq(top_t=4, rerank_k=32, q_chunk=70)(ivq, Qc)
+    assert got[0].device.type == "cuda"
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

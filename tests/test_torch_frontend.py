@@ -10,8 +10,8 @@ test_torch_serve.py::test_search_matches_both_jax_engines), tenant bitmaps
 equal JAX's bit for bit, and both circuit breakers walk the same states.
 Inside the port: tests/test_frontend.py and tests/test_resilience.py case
 for case (the replica cases through two CPU replicas, the front-end's
-`replica_devices` monkeypatched; the shard-parallel degraded fan-out waits
-for the port of the rest of core/distributed.py), the padding repair
+`replica_devices` monkeypatched; the shard-parallel degraded fan-out is
+in tests/test_torch_distributed.py), the padding repair
 (coalesced ≡ solo bit for bit) and a barrier stress test. n = 3,000,
 d = 24, inputs made by numpy from a seed. Every Future, flush and join
 takes a timeout, and every front-end is closed by a fixture finalizer.
