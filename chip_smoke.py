@@ -186,7 +186,23 @@ just after, and fails if one of its kernels was never launched:
      ranks' ids and scores equal the in-process search bit for bit, with
      each rank's collective ms. Peak memory and the phase's seconds
      (kernels: Lloyd, vq_assign, soar_assign, tree_route, pq_score_probes);
- 17. each kernel against its plain PyTorch version on the paths' own
+ 17. the contracts of repro_torch.analysis on the card at the main path's
+     width, over the hand-written kernels: each of the 11 registered
+     contracts traced by the contracts' op recorder (a TorchDispatchMode
+     that keeps each aten op's output shapes, dtypes and devices) through
+     drive(), after one warm run: one 128-row tile of phase 3's index
+     through search_jit_batched flat, tree-routed, and filtered at 1% with
+     escalation, search_jit and the tree route at that tile, assign_fused
+     and pq_encode on 65,537 rows, lloyd_sweep on 131,071 (primes), the
+     replica fan-out (256 queries) and make_sharded_assign (131,074 rows)
+     over [cuda:0, cuda:0], and both shard-parallel makers over phase 16's
+     4 x 1,000,000 stack (64 queries, one tile a shard; n is a shard's);
+     every search and shard-parallel trace also runs under
+     torch.cuda.set_sync_debug_mode("error"). Prints each trace's op
+     count, largest output that is not a view (op, shape, bytes), the host
+     seconds of the warm and the recorded run, and findings; fails on any
+     finding (kernels: every one of phase 3's and the tree route);
+ 18. each kernel against its plain PyTorch version on the paths' own
      inputs, with its time (CUDA events), the plain version's time and the
      least time the card could take: the larger of bytes / 3.35 TB/s and
      the operations' time, where f32 products (x·cᵀ) count at the TF32
@@ -219,7 +235,7 @@ just after, and fails if one of its kernels was never launched:
      gives it at phase 16's m = 25 ("m25", one 64-query tile of shard 0).
      "launches" of a kernel sum every driven path above but the filtered
      one of phase 5;
- 18. the {"kernels": [...]} line, then the device line, last.
+ 19. the {"kernels": [...]} line, then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package (src/repro).
 """
@@ -510,6 +526,114 @@ def rank_worker(args) -> int:
     return 0
 
 
+@contextmanager
+def sync_errors():
+    """Run with torch.cuda's sync debug mode at "error": an operation that
+    makes the host wait for the device raises."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def trace_contract(wrappers: dict, name: str, spec, needs, sync_free: bool):
+    """Contract `name` of repro_torch.analysis over `spec` on the card: one
+    warm run, then one run under the contracts' op recorder through drive()
+    (so every kernel in `needs` must launch), inside sync_errors() when
+    `sync_free` → (summary with the op count, the largest output, the
+    findings and the host seconds of the warm and the recorded run, the
+    launch counts). The largest output is the largest that is not a view
+    of an input."""
+    from repro_torch.analysis import contracts
+    _, warm_s = timed(lambda: spec.fn(*spec.args))
+
+    def run():
+        with sync_errors() if sync_free else ExitStack():
+            return contracts.record_ops(spec)
+
+    t0 = time.perf_counter()
+    rec, counts = drive(wrappers, needs, run)
+    traced_s = time.perf_counter() - t0
+    found = contracts.evaluate(contracts.REGISTRY[name], spec, rec)
+    big = max((o for o in rec.outputs if not o.view), key=lambda o: o.nbytes)
+    return {"contract": name, "dims": spec.dims, "ops": rec.n_ops,
+            "warm_s": warm_s, "traced_s": traced_s,
+            "largest": {"op": big.op, "shape": list(big.shape), "dtype": big.dtype,
+                        "bytes": big.nbytes},
+            "sync_error_mode": sync_free,
+            "findings": [f.render() for f in found]}, counts
+
+
+def contract_traces(packed, flat, idx, X, Q, bits, shards):
+    """The contracts' workloads at the main path's width → [(contract name,
+    label, TraceSpec, kernels it needs, searched under sync_errors())]:
+    one 128-row tile of phase 3's index searched flat, tree-routed and
+    filtered with escalation, search_jit on it, the tree route at that
+    tile, assign_fused and pq_encode on 65,537 rows, a Lloyd sweep on
+    131,071, the replica and build fan-outs over the card twice, and both
+    shard-parallel makers over phase 16's stack (64 queries, one tile a
+    shard; n is a shard's)."""
+    from repro_torch.analysis.contracts import TraceSpec
+    from repro_torch.core.distributed import (make_distributed_search,
+                                              make_distributed_search_pq,
+                                              make_replicated_search, make_sharded_assign)
+    from repro_torch.core.search import search_jit, search_jit_batched
+    from repro_torch.kernels.soar_assign import assign_fused
+    from repro_torch.kernels.lloyd import lloyd_sweep
+    from repro_torch.kernels.tree_route import tree_route
+    from repro_torch.quant.pq import pq_encode
+    ivq, iv, Qs = shards
+    n, nl = X.shape[0], iv.rerank.shape[1]
+    Qt = Q[:BQ]
+    C = idx.centroids
+    rt = packed.router
+    kw = dict(top_t=TOP_T, final_k=FINAL_K, rerank_budget=BUDGET, multiplicity=2)
+    probe, route = ("pq_score_probes",), ("tree_route", "pq_score_probes")
+    assign = ("vq_assign", "soar_assign")
+    two = [DEVICE + ":0"] * 2
+    return [
+        ("search_jit_batched", "flat", TraceSpec(
+            lambda p, q: search_jit_batched(p, q, bq=BQ, router=flat, **kw),
+            (packed, Qt), {"n": n}), probe, True),
+        ("search_jit_batched", "tree", TraceSpec(
+            lambda p, q: search_jit_batched(p, q, bq=BQ, **kw), (packed, Qt), {"n": n}),
+         route, True),
+        ("search_jit_batched_filtered", "tree, 1%, escalated", TraceSpec(
+            lambda p, q, f: search_jit_batched(p, q, bq=BQ, filter=f, escalate=True, **kw),
+            (packed, Qt, bits), {"n": n}), route, True),
+        ("search_jit", "tree", TraceSpec(lambda p, q: search_jit(p, q, **kw), (packed, Qt),
+                                         {"n": n}), route, True),
+        ("tree_route", "main tile", TraceSpec(
+            lambda q, sc, cc, ch: tree_route(q, sc, cc, ch, rt.eff_t_route),
+            (Qt, rt.super_centroids, rt.child_centroids, rt.children)), ("tree_route",),
+         True),
+        ("assign_fused", "65,537 rows", TraceSpec(
+            lambda x, c: assign_fused(x, c, 1.0, 1), (X[:65_537], C),
+            {"n": 65_537, "c": C.shape[0]}), assign, False),
+        ("lloyd_sweep", "131,071 rows", TraceSpec(
+            lambda x, c: lloyd_sweep(x, c), (X[:131_071], C),
+            {"n": 131_071, "c": C.shape[0]}), ("lloyd_sweep",), False),
+        ("pq_encode", "65,537 rows", TraceSpec(
+            lambda cb, x: pq_encode(cb, x, chunk=512), (idx.pq, X[:65_537]),
+            {"n": 65_537, "d": X.shape[1]}), (), False),
+        ("replicated_search", "cuda:0 twice", TraceSpec(
+            make_replicated_search(two, bq=BQ, **kw), (packed, Q[:2 * BQ]), {"n": n}),
+         route, True),
+        ("sharded_assign", "cuda:0 twice", TraceSpec(
+            make_sharded_assign(two), (X[:131_074], C), {"n": 131_074, "c": C.shape[0]}),
+         assign, False),
+        ("distributed_search", "4 shards", TraceSpec(
+            make_distributed_search(top_t=TOP_T, final_k=FINAL_K, multiplicity=2),
+            (iv, Qs), {"n": nl}), (), True),
+        ("distributed_search_pq", "4 shards", TraceSpec(
+            make_distributed_search_pq(top_t=TOP_T, final_k=FINAL_K, rerank_k=BUDGET,
+                                       q_chunk=Qs.shape[0], multiplicity=2),
+            (ivq, Qs), {"n": nl}), probe, True),
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -527,6 +651,7 @@ def main() -> int:
         return rank_worker(args)
 
     from repro_torch import faults
+    from repro_torch.analysis import contracts as contracts_mod
     from repro_torch.ckpt import CorruptSnapshotError, MutationWAL
     from repro_torch.core import (build_ivf, build_ivf_sharded, kmr_curve, pack_ivf,
                                   points_to_recall, rank_statistics, recall_at_k,
@@ -1854,10 +1979,10 @@ def main() -> int:
                  ivq.extent[0].clone(), parts, psc)
         out["phase_s"] = time.perf_counter() - t_phase
         out["peak_bytes"] = torch.cuda.max_memory_allocated()
-        return out, probe
+        return out, probe, (ivq, iv, Qt.clone())
 
     with tempfile.TemporaryDirectory() as tmp:
-        (ssum, probe25), slaunch = drive(
+        (ssum, probe25, shards), slaunch = drive(
             wrappers, ("pq_score_probes", "tree_route", "vq_assign", "soar_assign",
                        "lloyd_sweep"), lambda: shard_phase(tmp))
     path_launches.update(slaunch)
@@ -1888,7 +2013,32 @@ def main() -> int:
     assert all(ssum["ranks_equal_in_process"]), \
         f"the gloo ranks' results differ from the in-process search: {ssum['ranks_equal_in_process']}"
 
-    # 17. each kernel against its plain version, on the paths' inputs
+    # 17. the contracts of repro_torch.analysis on the card, at the main
+    # path's width
+    keep = perm[:int(N * SELECTIVITIES[0])].to(DEVICE)
+    bits = torch.zeros(N, dtype=torch.uint8, device=DEVICE)
+    bits[keep] = 1
+    t0 = time.perf_counter()
+    csum = []
+    for name, label, spec, needs, sync_free in contract_traces(
+            packed, flat, idx, ds.X, ds.Q, bits, shards):
+        row, counts = trace_contract(wrappers, name, spec, needs, sync_free)
+        path_launches.update(counts)
+        csum.append({"label": label, **row, "launches": counts})
+        print(f"contract {name} ({label}): {row['ops']} ops, largest "
+              f"{row['largest']['op']} {row['largest']['shape']} "
+              f"{row['largest']['bytes']} B, warm {row['warm_s']:.4f} s, traced "
+              f"{row['traced_s']:.4f} s, findings {row['findings']}")
+    del shards, bits, spec
+    torch.cuda.empty_cache()
+    print("contracts: " + json.dumps({"phase_s": time.perf_counter() - t0,
+                                      "traces": csum}))
+    assert {r["contract"] for r in csum} == set(contracts_mod.REGISTRY), \
+        "a registered contract was not traced on the card"
+    for r in csum:
+        assert not r["findings"], f"contract {r['contract']} ({r['label']}): {r['findings']}"
+
+    # 18. each kernel against its plain version, on the paths' inputs
     kernels = []
 
     def record(name, source, replaces, err, ms, plain_ms, nbytes, ops_, mm_ops=0.0,
@@ -2174,7 +2324,7 @@ def main() -> int:
               f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
     print("plain work: " + json.dumps(plain))
 
-    # 18. result lines
+    # 19. result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

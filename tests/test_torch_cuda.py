@@ -9,8 +9,11 @@ the kNN memory and the shard-parallel search on the card against the same
 slices on the CPU (which tests/test_torch_slice.py, test_torch_router.py,
 test_torch_filtered.py, test_torch_durability.py, test_torch_kmr.py,
 test_torch_frontend.py, test_torch_knn_memory.py and
-test_torch_distributed.py hold against the JAX package). This
-file imports nothing of JAX, so it runs where only PyTorch is installed:
+test_torch_distributed.py hold against the JAX package); the static
+analyzer's contracts are traced on the card over the kernels
+(repro_torch.analysis: the CLI, the device-to-host rule, Lloyd's (n,)
+vectors, search tiles under torch's sync check). This file imports
+nothing of JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -1088,3 +1091,70 @@ def test_sharded_search_under_a_gloo_group_on_card(cuda, tmp_path):
     want = dist_mod.make_distributed_search_pq(top_t=4, rerank_k=32, q_chunk=70)(ivq, Qc)
     assert got[0].device.type == "cuda"
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ------------------------------------------------- static analysis on the card
+
+def test_analysis_cli_clean_on_card(cuda):
+    """Lints and all 11 contracts at their tiny sizes, traced on the card
+    over the kernels."""
+    from repro_torch.analysis import check
+    assert check.main(["--device", "cuda", "-q"]) == 0
+
+
+@pytest.mark.parametrize("cls", ["host-sync", "o-n-intermediate", "f64-leak"])
+def test_analysis_cli_injection_on_card(cuda, cls):
+    from repro_torch.analysis import check
+    assert check.main(["--only", "lint", "--inject", cls, "--device", "cuda", "-q"]) != 0
+
+
+def test_host_sync_rule_sees_device_to_host_copies(cuda):
+    """On the card a copy to the host is a sync; the same copy on the CPU
+    is not."""
+    from repro_torch.analysis import contracts
+    x = torch.ones(8, device=cuda)
+    for fn in (lambda t: t.cpu(), lambda t: t.to("cpu"), lambda t: (t * 2).cpu() + 1):
+        rec = contracts.record_ops(contracts.TraceSpec(fn=fn, args=(x,)))
+        assert rec.syncs == ["aten._to_copy.default:cuda->cpu"], rec.syncs
+    rec = contracts.record_ops(contracts.TraceSpec(fn=lambda t: t.cpu(), args=(x.cpu(),)))
+    assert rec.syncs == []
+
+
+def test_lloyd_keeps_n_vectors_on_card(cuda):
+    """The stated departure from JAX's lloyd_sweep rule: on the card the
+    sweep keeps (n,) idx and mind between its two launches, so JAX's
+    no_dims_1d flags the trace; the port's no_products rule holds."""
+    from repro_torch.analysis import contracts
+    c = contracts.REGISTRY["lloyd_sweep"]
+    spec = c.build(cuda)
+    before = lloyd_sweep.launches
+    rec = contracts.record_ops(spec)
+    assert lloyd_sweep.launches == before + 1
+    n = spec.dims["n"]
+    ones = {(o.shape, o.dtype) for o in rec.outputs if len(o.shape) == 1 and o.shape[0] >= n}
+    assert {((n,), "int32"), ((n,), "float32")} <= ones
+    jax_rule = contracts.JaxprContract("lloyd_sweep", c.build, no_dims_1d=frozenset({"n"}),
+                                       no_products=c.no_products)
+    assert contracts.evaluate(jax_rule, spec, rec) != []
+    assert contracts.evaluate(c, spec, rec) == []
+
+
+@pytest.mark.parametrize("name", ["search_jit", "search_jit_batched",
+                                  "search_jit_batched_filtered", "distributed_search_pq",
+                                  "replicated_search"])
+def test_search_contracts_sync_free_on_card(cuda, name):
+    """A search tile waits on the host nowhere: its contract holds, and
+    torch's own sync check raises nothing, with the kernels launched."""
+    from repro_torch.analysis import contracts
+    c = contracts.REGISTRY[name]
+    spec = c.build(cuda)
+    spec.fn(*spec.args)                                    # warm
+    before = pq_score_probes.launches
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rec = contracts.record_ops(spec)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    assert pq_score_probes.launches > before
+    assert contracts.evaluate(c, spec, rec) == []
