@@ -7,7 +7,9 @@ JAX `repro.core.search.PackedIVF` (a mutable index's packed snapshot
 included), and `mutable_from_numpy` for a JAX
 `repro.core.mutable.MutableIVF`'s whole state, so both packages can be
 mutated side by side from the same bits, and `knn_memory_from_numpy` for a
-JAX `repro.serve.knn_memory.KNNMemory`. A router travels under the names of
+JAX `repro.serve.knn_memory.KNNMemory`, and `model_params_from_numpy` for
+a JAX model's parameter tree (`repro.models.transformer.init_params`), so
+both packages compute the same function. A router travels under the names of
 the JAX package's snapshot codec (`repro/ckpt/index_store.py`).
 """
 from __future__ import annotations
@@ -21,6 +23,9 @@ from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.mutable import MutableIVF
 from repro_torch.core.router import FlatRouter, TreeRouter
 from repro_torch.core.search import PackedIVF, slot_extent
+from repro_torch.models import params as prm
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Transformer, abstract_params
 from repro_torch.quant.int8 import Int8Data
 from repro_torch.quant.pq import PQCodebook
 from repro_torch.serve.api import DEFAULT_TOP_T
@@ -170,3 +175,23 @@ def knn_memory_from_numpy(fields: Mapping[str, object], device: Device = None) -
                      engine=str(fields["engine"]),
                      segments=t("segments", torch.int32),
                      top_t=int(fields.get("top_t", DEFAULT_TOP_T)))
+
+
+def model_params_from_numpy(cfg: ModelConfig, tree, device: Device = None) -> Transformer:
+    """A JAX model's parameter tree as nested dicts of numpy arrays
+    (`jax.tree.map(np.asarray, params)`) → the port's `Transformer` on
+    `device`. Every leaf must have the shape `cfg`'s definitions give; the
+    values are copied as they are (the layouts are JAX's)."""
+    want = dict(prm.leaf_paths(abstract_params(cfg)))
+    got = dict(prm.leaf_paths(tree))
+    if set(want) != set(got):
+        raise KeyError(f"parameter tree differs: missing "
+                       f"{sorted(set(want) - set(got))}, extra {sorted(set(got) - set(want))}")
+    for path, meta in want.items():
+        if tuple(np.shape(got[path])) != tuple(meta.shape):
+            raise ValueError(f"{path}: shape {np.shape(got[path])}, "
+                             f"expected {tuple(meta.shape)}")
+    dev = resolve_device(device)
+    params = prm.tree_map(
+        lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev), tree)
+    return Transformer(cfg, params, device=dev)

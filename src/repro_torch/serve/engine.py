@@ -1,5 +1,12 @@
-"""Online ANN serving over a mutable SOAR index (PyTorch port of the ANN
-half of `repro/serve/engine.py`, DESIGN.md §3.7).
+"""Serving engines (PyTorch port of `repro/serve/engine.py`): LM decode
+(prefill + greedy decode over the model zoo) and online ANN serving over a
+mutable SOAR index (DESIGN.md §3.7).
+
+`ServeEngine` prefills a batch of prompts and decodes greedily on the
+card (or on the CPU when asked). It casts the big group weights to the
+compute dtype once, where JAX casts them on every call, and refuses an
+encoder-only config when it is built (JAX fails later, inside the decode
+step).
 
 `AnnEngine` adds, removes and searches against a live `MutableIVF` on the
 card: `search` serves from the index's cached packed snapshot through the
@@ -16,6 +23,7 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch import faults
 from repro_torch.ckpt.index_store import load_snapshot, save_snapshot
@@ -23,10 +31,104 @@ from repro_torch.ckpt.wal import MutationWAL
 from repro_torch.core.mutable import MutableIVF
 from repro_torch.core.router import clamp_top_t
 from repro_torch.core.search import pad_queries, search_jit_batched
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import tree_map
 from repro_torch.serve.api import (DEFAULT_BQ, DEFAULT_RERANK_BUDGET,
                                    DEFAULT_TOP_T, SearchParams, SearchResult,
                                    _positive_int, validate_queries)
-from repro_torch.utils import Device
+from repro_torch.utils import Device, as_tensor, resolve_device
+
+
+def make_serve_step(cfg: ModelConfig):
+    """fn(params, token (B,1), caches, index) → (next_token (B,1), caches);
+    the caches are updated in place."""
+
+    def serve_step(params, token, caches, index: int):
+        logits, caches = T.decode_step(params, token, caches, index, cfg)
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        return nxt[:, None], caches
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig, max_seq: int):
+    def prefill_step(params, inputs):
+        return T.prefill(params, inputs, cfg, max_seq=max_seq)
+    return prefill_step
+
+
+class ServeEngine:
+    """Batched greedy-decoding engine.
+
+    params: a `Transformer` or its parameter tree. The engine runs on
+    `device` (CUDA unless the caller passes "cpu") and keeps its own tree
+    there, with the big group weights cast once to the compute dtype.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, max_seq: int = 256,
+                 device: Device = None):
+        if not cfg.has_decode:
+            raise ValueError(f"{cfg.name}: an encoder-only config has no "
+                             "decode step")
+        self.cfg = cfg
+        self.max_seq = max_seq
+        self.device = resolve_device(device)
+        tree = params.param_tree() if isinstance(params, T.Transformer) else params
+        with torch.no_grad():
+            tree = tree_map(lambda a: a.detach().to(self.device), tree)
+            tree["groups"] = T.cast_big_params(tree["groups"], cfg)
+        self.params = tree
+        self._prefill = make_prefill_step(cfg, max_seq)
+        self._step = make_serve_step(cfg)
+
+    @torch.inference_mode()
+    def generate(self, inputs: dict, n_new: int, timings: Optional[dict] = None):
+        """inputs: {"tokens": (B, S)} (+ "patches" for vlm), arrays or
+        tensors. Greedy decode → (B, n_new) int32 token ids on the
+        engine's device; the argmax runs over the padded vocab.
+
+        timings: if a dict, it receives "prefill_s" and "step_s" (a list,
+        one per decode step), each on the host clock to the end of its
+        device work (the device is synchronised after each)."""
+        inputs = {k: as_tensor(v, self.device) for k, v in inputs.items()}
+        clock = _Clock(self.device, timings)
+        logits, caches = self._prefill(self.params, inputs)
+        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+        clock.lap("prefill_s")
+        prefix = (self.cfg.n_prefix_embeds
+                  if self.cfg.frontend == "vision" else 0)
+        start = inputs["tokens"].shape[1] + prefix
+        out = [tok]
+        for i in range(n_new - 1):
+            tok, caches = self._step(self.params, tok, caches, start + i)
+            out.append(tok)
+            clock.lap("step_s")
+        return torch.cat(out, dim=1)
+
+
+class _Clock:
+    """Host seconds between laps, each to the end of the device's work;
+    does nothing without a timings dict."""
+
+    def __init__(self, device: torch.device, timings: Optional[dict]):
+        self.device, self.timings = device, timings
+        self.t = self._now() if timings is not None else 0.0
+
+    def _now(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def lap(self, key: str) -> None:
+        if self.timings is None:
+            return
+        t = self._now()
+        dt, self.t = t - self.t, t
+        if key == "step_s":
+            self.timings.setdefault(key, []).append(dt)
+        else:
+            self.timings[key] = dt
 
 
 class AnnEngine:

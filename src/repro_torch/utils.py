@@ -11,12 +11,16 @@ Device = Union[str, torch.device, None]
 
 
 def set_f32_precision() -> None:
-    """Full float32 matrix products on the card (no TF32).
+    """Full float32 matrix products on the card (no TF32), and bf16
+    products accumulated in f32 throughout, as XLA accumulates them.
 
     Argmin parity with the f32 references depends on it: TF32 keeps about
-    three decimal digits, enough to flip near-tied centroid choices.
+    three decimal digits, enough to flip near-tied centroid choices. A
+    reduced-precision bf16 reduction (torch's default) rounds partial sums
+    to bf16 inside a product.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 

@@ -5,11 +5,13 @@ and the build + search slice, the tree-routed filtered search and the
 serving slice (online inserts, the pruned router, the delta pack, the host
 engine), snapshots and log replay onto the card, the KMR curve, the
 front-end's coalesced ≡ solo guarantee, tenant bitmaps, replica fan-out,
-the kNN memory and the shard-parallel search on the card against the same
-slices on the CPU (which tests/test_torch_slice.py, test_torch_router.py,
+the kNN memory, the shard-parallel search and the LM serving path (every
+architecture's smoke config) on the card against the same slices on the
+CPU (which tests/test_torch_slice.py, test_torch_router.py,
 test_torch_filtered.py, test_torch_durability.py, test_torch_kmr.py,
-test_torch_frontend.py, test_torch_knn_memory.py and
-test_torch_distributed.py hold against the JAX package); the static
+test_torch_frontend.py, test_torch_knn_memory.py,
+test_torch_distributed.py, test_torch_models.py and
+test_torch_lm_serve.py hold against the JAX package); the static
 analyzer's contracts are traced on the card over the kernels
 (repro_torch.analysis: the CLI, the device-to-host rule, Lloyd's (n,)
 vectors, search tiles under torch's sync check). This file imports
@@ -1158,3 +1160,104 @@ def test_search_contracts_sync_free_on_card(cuda, name):
         torch.cuda.set_sync_debug_mode(prev)
     assert pq_score_probes.launches > before
     assert contracts.evaluate(c, spec, rec) == []
+
+
+# ------------------------------------------------------- the LM serving path
+
+LM_ARCHS = ("granite-3-2b", "nemotron-4-15b", "minitron-8b", "mistral-large-123b",
+            "paligemma-3b", "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b", "xlstm-350m",
+            "hubert-xlarge", "jamba-v0.1-52b")
+LM_CAUSAL = tuple(a for a in LM_ARCHS if a != "hubert-xlarge")
+
+
+def _lm_twins(cuda, arch, **replace):
+    """(cfg, the same f32 parameters on the CPU and on the card) at the
+    smoke config."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    cfg = get_config(arch).smoke_config().replace(**replace)
+    cpu = TT.Transformer(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = TT.Transformer(cfg, {k: v for k, v in cpu.param_tree().items()}, device=cuda)
+    return cfg, cpu, card
+
+
+def _lm_inputs(cfg, B, S, seed, device):
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.frontend == "audio":
+        out["frames"] = torch.tensor(rng.standard_normal((B, S, cfg.d_model)),
+                                     dtype=torch.float32, device=device)
+        return out
+    out["tokens"] = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                 dtype=torch.int32, device=device)
+    if cfg.frontend == "vision":
+        out["patches"] = torch.tensor(rng.standard_normal((B, cfg.n_prefix_embeds, cfg.d_model)),
+                                      dtype=torch.float32, device=device)
+    return out
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_forward_on_card_matches_cpu(cuda, arch):
+    """The port on the card against the port on the CPU, same f32
+    parameters: forward logits within 1e-4 relative and 1e-4 of the
+    largest |logit| (xlstm's mLSTM gates carry f32 errors of ~1e-5 of
+    it, on either device)."""
+    from repro_torch.models import transformer as TT
+    cfg, cpu, card = _lm_twins(cuda, arch, compute_dtype="float32")
+    with torch.no_grad():
+        want = TT.logits_from_hidden(cpu.param_tree(), cpu(_lm_inputs(cfg, 2, 32, 1, "cpu"))[0], cfg)
+        got = TT.logits_from_hidden(card.param_tree(), card(_lm_inputs(cfg, 2, 32, 1, cuda))[0], cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                               atol=1e-4 * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.parametrize("arch", LM_CAUSAL)
+def test_lm_prefill_decode_consistency_on_card(cuda, arch):
+    """decode_step after prefill reproduces the full forward's last logits
+    on the card (f32, no MoE drops)."""
+    from repro_torch.models import transformer as TT
+    cfg, _, card = _lm_twins(cuda, arch, compute_dtype="float32", capacity_factor=8.0)
+    S = 16
+    batch = _lm_inputs(cfg, 2, S, 2, cuda)
+    prefix = cfg.n_prefix_embeds if cfg.frontend == "vision" else 0
+    with torch.no_grad():
+        x, _ = card(batch)
+        full = TT.logits_from_hidden(card.param_tree(), x[:, -1:], cfg)
+        _, caches = card.prefill(dict(batch, tokens=batch["tokens"][:, :S - 1]), S + prefix)
+        dec, _ = card.decode_step(batch["tokens"][:, S - 1:], caches, S - 1 + prefix)
+    torch.testing.assert_close(dec, full, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", LM_CAUSAL)
+def test_lm_generate_repeats_bitwise_on_card(cuda, arch):
+    """bf16 greedy decoding gives the same ids twice, below the padded
+    vocab, with no CUDA atomics in the MoE combine."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg, _, card = _lm_twins(cuda, arch)
+    eng = ServeEngine(cfg, card, max_seq=48, device=cuda)
+    inputs = _lm_inputs(cfg, 3, 24, 3, cuda)
+    inputs.pop("frames", None)
+    a, b = eng.generate(inputs, 8), eng.generate(inputs, 8)
+    assert a.device.type == cuda.type and torch.equal(a, b)
+    assert int(a.max()) < cfg.vocab_padded and int(a.min()) >= 0
+
+
+def test_moe_combine_repeats_bitwise_on_card(cuda):
+    """The MoE layer at bf16 over 8,192 tokens (128 experts, top 8, the
+    qwen3-moe widths) twice: the same bits, and drops at capacity 1.25."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, params as prm
+    cfg = get_config("qwen3-moe-30b-a3b")
+    p = prm.init(torch.Generator().manual_seed(0), moe.moe_def(cfg), device=cuda)
+    x = torch.randn((8, 1024, cfg.d_model), generator=torch.Generator().manual_seed(1)
+                    ).to(cuda, torch.bfloat16)
+    a, b = moe.moe_mlp(p, x, cfg), moe.moe_mlp(p, x, cfg)
+    assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    assert bool(torch.isfinite(a).all())
+
+
+def test_lm_entry_points_turn_reduced_precision_off(cuda):
+    from repro_torch.utils import resolve_device
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    resolve_device(None)
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False

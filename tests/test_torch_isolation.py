@@ -45,7 +45,13 @@ def test_every_port_module_imports_without_jax():
                      "repro_torch.ckpt.faults", "repro_torch.ckpt.index_store",
                      "repro_torch.ckpt.wal", "repro_torch.serve.frontend",
                      "repro_torch.serve.health", "repro_torch.serve.knn_memory",
-                     "repro_torch.core.distributed"):
+                     "repro_torch.core.distributed", "repro_torch.models.config",
+                     "repro_torch.models.params", "repro_torch.models.layers",
+                     "repro_torch.models.attention", "repro_torch.models.moe",
+                     "repro_torch.models.ssm", "repro_torch.models.transformer",
+                     "repro_torch.configs", "repro_torch.configs.granite_3_2b",
+                     "repro_torch.configs.xlstm_350m",
+                     "repro_torch.configs.qwen3_moe_30b_a3b"):
             assert name in names, (name, names)
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k, v in sys.modules.items() if v is not None)
@@ -62,5 +68,6 @@ def test_chip_smoke_imports_without_jax():
         spec.loader.exec_module(mod)
         assert callable(mod.main)
         import repro_torch.core, repro_torch.serve   # what main() imports
+        import repro_torch.configs, repro_torch.models.transformer
     """)
     assert r.returncode == 0, r.stderr
