@@ -268,7 +268,43 @@ just after, and fails if one of its kernels was never launched:
      on the card against the same f32 parameters on the CPU (logits within
      1e-4), prefill -> decode against the forward, bf16 ids twice. Prints
      "lm ..." lines and one "lm serving: {...}" JSON line;
- 20. the {"kernels": [...]} line, then the device line, last.
+ 20. LM training, after phase 19's tensors are freed, through drive()
+     with no kernel needed (launches all 0, printed and not added):
+     (a) granite-3-2b at full width and depth, f32 parameters and AdamW
+     state, bf16 compute, remat="block", Markov batches from
+     for_model(cfg, 4,096 tokens (train_4k's length), global batch 8
+     (train_4k's 256 is a pod's), seed), accum 4 (micro-batches of 2),
+     through train(): one warm-up step, three timed; every loss and
+     grad_norm finite, the first loss within 0.5 of a random model's
+     ln(vocab_padded) + 1/2 (logits of variance 1), lr equal to
+     warmup_cosine's at each step, every leaf changed; step seconds
+     (median), tokens/s, the AdamW update's ms (CUDA events), peak memory,
+     beside two bounds: the step's FLOPs at 989 TFLOP/s bf16 (8 a group
+     parameter a token: forward, remat recompute, backward; the head's 6;
+     attention's 16 B S^2 heads head_dim a layer) and the update's bytes
+     at 3.35 TB/s (params, grads, m, v read; params, m, v written); one
+     more step under torch.profiler (device busy ms, kernels, the six
+     costliest, idle share). (b) at full width cut to 4 layers and 1,024
+     tokens: two 4-step runs from one seed equal bit for bit; a run whose
+     on_log sends SIGTERM to its own process after step 2 saves and
+     exits, and a fresh train() resumes it from its CheckpointManager to
+     step 4, equal to the uninterrupted run bit for bit; one save timed
+     (bytes, seconds, GB/s) and restored onto the CPU bit for bit. (c)
+     accum 1 against 4 on one global batch (loss rtol 2e-4, parameters
+     rtol 6e-3 / atol 5e-4, JAX's bars). (d) one f32 train step of every
+     smoke config on the card against the CPU (loss 1e-5 relative, m 1e-4
+     of its scale, parameters atol 1e-4 = the step's lr). (e) two gloo
+     ranks on cuda:0 (`--job train`): the compressed all-reduce and three
+     error-feedback steps on a 2,048 x 2,048 leaf equal to the same calls
+     on CPU copies bit for bit; the two-stage pipeline at 4 layers, M = 4
+     micro-batches of 1 x 1,024 (f32), by group= in the ranks and by
+     devices=[cuda:0, cuda:0] here, loss within 1e-5 and the wq and
+     embed gradients within 2e-4 of the sequential ones; expert
+     parallelism at ep 2 over qwen3-moe-30b-a3b at full width cut to 2
+     of 48 layers (f32, 2 x 1,024 tokens): loss within 1e-5 and every
+     gradient within 1e-4 of its scale against the dense path. Prints
+     "lm train ..." lines and one "lm training: {...}" JSON line;
+ 21. the {"kernels": [...]} line, then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package (src/repro).
 """
@@ -328,6 +364,14 @@ LM_ARCH, LM_B, LM_PROMPT, LM_NEW = "granite-3-2b", 8, 4096, 128
 LM_CHECK_B, LM_CHECK_S, LM_CHECK_NEW = 2, 256, 4   # the f32 checks (b) and (c)
 XLSTM_PROMPT, XLSTM_NEW = 1024, 64                # xlstm-350m at full width and depth
 MOE_LAYERS, MOE_PROMPT, MOE_NEW = 2, 1024, 32     # qwen3-moe-30b-a3b, depth cut from 48
+# LM training phase: granite-3-2b at full width and depth, train_4k's 4,096 tokens
+# (models.config.SHAPES) at a global batch of 8 (train_4k's 256 is a pod's), micro-batches
+# of 2 (accum 4); (b)-(c) at full width cut to 4 layers and 1,024 tokens; (e) the
+# two-stage pipeline at 4 layers, M = 4 micro-batches of 1 x 1,024, and expert
+# parallelism over qwen3-moe-30b-a3b cut to 2 of its 48 layers, 2 x 1,024 tokens
+TR_SEQ, TR_BATCH, TR_ACCUM, TR_STEPS, TR_LR = 4096, 8, 4, 4, 3e-4
+TR_CUT_LAYERS, TR_CUT_SEQ = 4, 1024
+TR_PIPE_M, TR_PIPE_S, TR_EP_B, TR_EP_S, TR_GRAD = 4, 1024, 2, 1024, 2048
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S = 3.35e12, 67e12, 495e12
 PEAK_BF16_S = 989e12   # the H100 SXM's dense bf16 tensor-core peak
 SMEM_WORDS_CLK = 32    # 4-byte words an SM's shared memory delivers a clock (128 B)
@@ -685,19 +729,23 @@ def main() -> int:
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--workdir", type=str, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--job", type=str, default="search", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if args.rank is not None:
-        return rank_worker(args)
+        return train_rank_worker(args) if args.job == "train" else rank_worker(args)
 
     smi, kind, wrappers, kernels = ann_phases(args)
     gc.collect()                          # phases 1-18's tensors go here
     torch.cuda.empty_cache()
     lm_phase(args.seed, smi, wrappers)
+    gc.collect()                          # phase 19's tensors go here
+    torch.cuda.empty_cache()
+    train_phase(args.seed, smi, wrappers)
 
-    # 20. result lines
+    # 21. result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -965,6 +1013,454 @@ def lm_phase(seed: int, smi: str, wrappers: dict) -> None:
               f"{r['decode_step_ms']:.3f} ms a step ({r['decode_tok_s']:.1f} tok/s)")
     print("lm serving: " + json.dumps(out))
     assert not any(counts.values()), f"the LM path launched a kernel of the six: {counts}"
+
+
+# ------------------------------------------------------------------ LM training
+
+def tree_equal(a, b) -> bool:
+    """Two parameter trees (or AdamW states) equal leaf for leaf, bit for bit."""
+    from repro_torch.models.params import leaf_paths
+    if hasattr(a, "_fields"):
+        return int(a.step) == int(b.step) and tree_equal(a.m, b.m) and tree_equal(a.v, b.v)
+    la, lb = list(leaf_paths(a)), list(leaf_paths(b))
+    return len(la) == len(lb) and all(
+        pa == pb and torch.equal(ta, tb.to(ta.device)) for (pa, ta), (pb, tb) in zip(la, lb))
+
+
+def tree_max_diff(a, b) -> float:
+    from repro_torch.models.params import leaf_paths
+    want = dict(leaf_paths(b))
+    return max(float((t - want[p].to(t.device)).abs().max()) for p, t in leaf_paths(a))
+
+
+def train_flops(cfg, B: int, S: int) -> float:
+    """FLOPs of one training step's products: each group parameter 2
+    FLOPs a token forward, 2 again in the remat recompute and 4 backward;
+    the head 2 forward and 4 backward (it is not recomputed); attention as
+    JAX computes it, every (q, kv) tile of S x S: 4 B S^2 heads head_dim
+    forward, as much again recomputed, twice that backward."""
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.params import leaf_paths
+    n_group = sum(t.numel() for _, t in leaf_paths(TT.abstract_params(cfg)["groups"]))
+    n_attn = cfg.block_pattern.count("attn") * cfg.n_groups
+    T = B * S
+    return (8 * n_group * T + 6 * cfg.d_model * cfg.vocab_padded * T
+            + 16 * B * S * S * cfg.n_heads * cfg.hd * n_attn)
+
+
+def train_granite(seed: int) -> dict:
+    """(a) granite-3-2b at full width and depth through train(): one
+    warm-up step, three timed; the step's bounds and its profile."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import for_model
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.params import leaf_paths
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import make_train_step, train
+    cfg = get_config(LM_ARCH)
+    pipe = for_model(cfg, seq_len=TR_SEQ, global_batch=TR_BATCH, seed=seed)
+    params = TT.init_params(torch.Generator().manual_seed(seed), cfg, device=DEVICE)
+    probes = {p: t.reshape(-1)[:4096].clone() for p, t in leaf_paths(params)}
+    stamps, logged, update_events = [], [], []
+
+    def on_log(step, m):
+        sync()
+        stamps.append(time.perf_counter())
+        logged.append({k: float(v) for k, v in m.items()})
+
+    real_update = opt_mod.update
+
+    def timed_update(*a, **k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_update(*a, **k)
+        end.record()
+        update_events.append((start, end))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    with plain_version(opt_mod, "update", timed_update):
+        params, state, losses = train(cfg, pipe, steps=TR_STEPS, lr=TR_LR, accum=TR_ACCUM,
+                                      params=params, log_every=1, on_log=on_log,
+                                      device=DEVICE)
+    peak = torch.cuda.max_memory_allocated()
+    lr_fn = opt_mod.warmup_cosine(TR_LR, warmup=max(TR_STEPS // 20, 10), total=TR_STEPS)
+    lr_want = [float(lr_fn(torch.tensor(i, dtype=torch.int32, device=DEVICE)))
+               for i in range(TR_STEPS)]
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    update_ms = [s.elapsed_time(e) for s, e in update_events]
+    ln_v = math.log(cfg.vocab_size)
+    # a random model's loss: ln(padded vocab) + sigma^2 / 2, its logits of
+    # variance 1 (unit-RMS final hidden state times the head's 1/sqrt(d) std)
+    expected0 = math.log(cfg.vocab_padded) + 0.5
+    changed = sum(not torch.equal(dict(leaf_paths(params))[p].reshape(-1)[:4096], t)
+                  for p, t in probes.items())
+    param_bytes = nbytes(t for _, t in leaf_paths(params))
+    flops = train_flops(cfg, TR_BATCH, TR_SEQ)
+    row = {"arch": cfg.name, "seq": TR_SEQ, "global_batch": TR_BATCH, "accum": TR_ACCUM,
+           "losses": losses, "grad_norm": [m["grad_norm"] for m in logged],
+           "lr": [m["lr"] for m in logged], "lr_want": lr_want,
+           "warmup_step_s": stamps[0] - t0, "step_s": step_s,
+           "step_s_median": float(np.median(step_s)),
+           "update_ms": update_ms, "update_ms_median": float(np.median(update_ms[1:])),
+           "peak_bytes": peak, "param_bytes": param_bytes,
+           "leaves_changed": changed, "leaves": len(probes),
+           "first_loss_minus_ln_vocab": losses[0] - ln_v, "expected_first_loss": expected0,
+           "step_bound_flops": flops, "step_bound_s": flops / PEAK_BF16_S,
+           # params, grads, m and v read once; params, m and v written once
+           "update_bound_bytes": 7 * param_bytes,
+           "update_bound_ms": 7 * param_bytes / PEAK_BYTES_S * 1e3}
+    row["tokens_s"] = TR_SEQ * TR_BATCH / row["step_s_median"]
+    row["step_share"] = row["step_bound_s"] / row["step_s_median"]
+    row["update_share"] = row["update_bound_ms"] / row["update_ms_median"]
+    assert all(math.isfinite(x) for x in losses + row["grad_norm"]), "a loss or grad_norm is not finite"
+    assert abs(losses[0] - expected0) < 0.5, \
+        f"first loss {losses[0]} is not within 0.5 of a random model's {expected0}"
+    assert row["lr"] == lr_want, f"lr {row['lr']} differs from warmup_cosine's {lr_want}"
+    assert changed == len(probes), f"only {changed} of {len(probes)} leaves changed"
+    # one more step under the profiler
+    step = make_train_step(cfg, lr_fn, accum=TR_ACCUM)
+    batch = {k: v.to(DEVICE) for k, v in pipe.batch_at(TR_STEPS).items()}
+    row["profile"], _ = lm_profile(lambda: step(params, state, batch))
+    busy = row["profile"]["device_busy_ms"]
+    row["device_idle_share"] = (None if busy is None
+                                else max(0.0, 1 - busy / row["profile"]["profiled_wall_ms"]))
+    return row
+
+
+def train_cut(seed: int) -> dict:
+    """(b) repeat and resume, (c) accumulation: granite at full width cut
+    to TR_CUT_LAYERS layers, TR_CUT_SEQ tokens."""
+    import signal
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import for_model
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.params import leaf_paths, tree_map
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import make_train_step, train
+    cfg = get_config(LM_ARCH).replace(n_layers=TR_CUT_LAYERS)
+    pipe = for_model(cfg, seq_len=TR_CUT_SEQ, global_batch=TR_BATCH, seed=seed)
+    kw = dict(steps=TR_STEPS, lr=TR_LR, seed=seed, log_every=1, device=DEVICE)
+    out = {"layers": TR_CUT_LAYERS, "seq": TR_CUT_SEQ}
+    ref = train(cfg, pipe, **kw)
+    again = train(cfg, pipe, **kw)
+    out["repeat_bitwise"] = tree_equal(ref[0], again[0]) and tree_equal(ref[1], again[1])
+    if not out["repeat_bitwise"]:
+        out["repeat_max_abs"] = max(tree_max_diff(again[0], ref[0]),
+                                    tree_max_diff(again[1].m, ref[1].m),
+                                    tree_max_diff(again[1].v, ref[1].v))
+    del again
+    saved = signal.getsignal(signal.SIGTERM)
+
+    def kill_after_2(step, metrics):
+        if step == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(os.path.join(tmp, "run"), keep=1)
+        try:
+            _, _, first = train(cfg, pipe, ckpt_manager=mgr, ckpt_every=100,
+                                on_log=kill_after_2, **kw)
+        finally:
+            signal.signal(signal.SIGTERM, saved)
+        out["preempted_after_steps"], out["checkpoint_steps"] = len(first), mgr.steps()
+        assert len(first) == 3 and mgr.steps() == [3], (first, mgr.steps())
+        params, state, rest = train(cfg, pipe, ckpt_manager=CheckpointManager(
+            os.path.join(tmp, "run"), keep=1), ckpt_every=100, **kw)
+        signal.signal(signal.SIGTERM, saved)
+        out["resumed_steps"] = len(rest)
+        out["resume_bitwise"] = tree_equal(params, ref[0]) and tree_equal(state, ref[1])
+        # one save timed, then restored onto the CPU
+        mgr2 = CheckpointManager(os.path.join(tmp, "timed"), keep=1)
+        _, save_s = timed(lambda: mgr2.save_train_state(TR_STEPS, params, state))
+        save_bytes = nbytes([t for tree in (params, state.m, state.v)
+                             for _, t in leaf_paths(tree)])
+        out.update(save_bytes=save_bytes, save_s=save_s, save_gb_s=save_bytes / save_s / 1e9)
+        cpu_p, cpu_s, data_step = mgr2.restore_train_state(cfg, device="cpu")
+        out["restore_on_cpu_bitwise"] = (data_step == TR_STEPS and tree_equal(cpu_p, params)
+                                         and tree_equal(cpu_s, state))
+        assert all(t.device.type == "cpu" for _, t in leaf_paths(cpu_p))
+    assert out["repeat_bitwise"], f"two runs from one seed differ: {out}"
+    assert out["resumed_steps"] == 1 and out["resume_bitwise"], f"resume differs: {out}"
+    assert out["restore_on_cpu_bitwise"], "the card's checkpoint restores otherwise on the CPU"
+    del ref, params, state, cpu_p, cpu_s
+    # (c) accum 1 against 4 on one global batch, JAX's bars
+    params = TT.init_params(torch.Generator().manual_seed(seed), cfg, device=DEVICE)
+    batch = {k: v.to(DEVICE) for k, v in pipe.batch_at(0).items()}
+    lr_fn = opt_mod.warmup_cosine(1e-3, 5, 100)
+    res = {a: make_train_step(cfg, lr_fn, accum=a)(tree_map(lambda t: t.clone(), params),
+                                                   opt_mod.init(params), batch)
+           for a in (1, 4)}
+    l1, l4 = float(res[1][2]["loss"]), float(res[4][2]["loss"])
+    worst = 0.0
+    for (_, a), (_, b) in zip(leaf_paths(res[1][0]), leaf_paths(res[4][0])):
+        excess = (a - b).abs() - (5e-4 + 6e-3 * b.abs())
+        worst = max(worst, float(excess.max()))
+    out.update(accum_loss=[l1, l4], accum_loss_rel=abs(l1 - l4) / abs(l1),
+               accum_params_max_abs=tree_max_diff(res[4][0], res[1][0]),
+               accum_worst_excess=worst)
+    assert out["accum_loss_rel"] <= 2e-4, f"accum 1 vs 4 loss {l1} vs {l4}"
+    assert worst <= 0, f"accum 1 vs 4 parameters past rtol 6e-3 / atol 5e-4 by {worst}"
+    return out
+
+
+def train_smoke(seed: int) -> dict:
+    """(d) one f32 train step of every smoke config on the card against the
+    same step on the CPU: loss within 1e-5 relative, every m leaf (0.1 x
+    the clipped gradient) within 1e-4 of its largest |value|, parameters
+    within rtol 1e-5 and atol 1e-4, the step's lr (Adam's first update is
+    lr g / (|g| + eps): where |g| is near eps a last-bit difference in g
+    moves the element by up to the step)."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.data.pipeline import for_model
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.params import leaf_paths, tree_map
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import make_train_step
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).smoke_config().replace(compute_dtype="float32")
+        cpu = TT.init_params(torch.Generator().manual_seed(seed), cfg, device="cpu")
+        card = tree_map(lambda a: a.to(DEVICE, copy=True), cpu)
+        batch = for_model(cfg, seq_len=32, global_batch=4, seed=seed).batch_at(0)
+        step = make_train_step(cfg, opt_mod.warmup_cosine(1e-3, 10, 100))
+        pc, sc, mc = step(cpu, opt_mod.init(cpu), batch)
+        pg, sg, mg = step(card, opt_mod.init(card), {k: v.to(DEVICE) for k, v in batch.items()})
+        rel = abs(float(mg["loss"]) - float(mc["loss"])) / abs(float(mc["loss"]))
+        m_want = dict(leaf_paths(sc.m))
+        m_rel = max(float((t.cpu() - m_want[p]).abs().max() / m_want[p].abs().max().clamp(min=1e-30))
+                    for p, t in leaf_paths(sg.m))
+        want = dict(leaf_paths(pc))
+        excess = max(float(((t.cpu() - want[p]).abs() - (1e-4 + 1e-5 * want[p].abs())).max())
+                     for p, t in leaf_paths(pg))
+        out[arch] = {"loss": float(mg["loss"]), "loss_rel": rel, "m_rel": m_rel,
+                     "params_max_abs": tree_max_diff(pg, pc), "params_worst_excess": excess}
+        assert rel <= 1e-5, f"{arch}: loss on the card {float(mg['loss'])} vs {float(mc['loss'])}"
+        assert m_rel <= 1e-4, f"{arch}: gradients (m) off by {m_rel} of their scale"
+        assert excess <= 0, f"{arch}: parameters past the bar by {excess}"
+    return out
+
+
+def train_rank_worker(args) -> int:
+    """One rank of phase 20's gloo group on the card (run as `chip_smoke.py
+    --rank R --world 2 --workdir DIR --job train`): the compressed
+    all-reduce and its feedback loop against the same calls on CPU
+    copies, its stage of the two-stage pipeline, and expert parallelism
+    against the dense path; results to DIR/rank<R>.pt."""
+    from datetime import timedelta
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.params import leaf_paths, tree_map
+    from repro_torch.train import grad_compress as gcm
+    from repro_torch.train.pipeline import local_stage, pipelined_loss_and_grad, stack_stage_params
+    from repro_torch.utils import set_f32_precision
+    set_f32_precision()
+    dist.init_process_group("gloo", init_method=f"file://{args.workdir}/store",
+                            rank=args.rank, world_size=args.world,
+                            timeout=timedelta(seconds=RANK_TIMEOUT))
+    g = dist.group.WORLD
+    out = {}
+    # the compressed all-reduce of one (2,048 x 2,048) gradient leaf
+    gen = torch.Generator().manual_seed(args.seed * 100 + args.rank)
+    xs = [torch.randn((TR_GRAD, TR_GRAD), generator=gen) for _ in range(4)]
+    t0 = time.perf_counter()
+    card = gcm.compressed_all_reduce(xs[0].to(DEVICE))
+    sync()
+    out["compress_ms"] = (time.perf_counter() - t0) * 1e3
+    equal = [torch.equal(card.cpu(), gcm.compressed_all_reduce(xs[0]))]
+    ec, eg = torch.zeros_like(xs[0]), torch.zeros_like(xs[0]).to(DEVICE)
+    for x in xs[1:]:
+        rc, ec = gcm.compressed_all_reduce_with_feedback(x, ec)
+        rg, eg = gcm.compressed_all_reduce_with_feedback(x.to(DEVICE), eg)
+        equal.append(torch.equal(rg.cpu(), rc) and torch.equal(eg.cpu(), ec))
+    exact = xs[0].clone()
+    dist.all_reduce(exact, group=g)
+    out.update(compress_equal_cpu=equal,
+               compress_rel=float((card.cpu() - exact).abs().max() / exact.abs().max()))
+    # this rank's stage of the two-stage pipeline (f32)
+    cfg = get_config(LM_ARCH).replace(n_layers=TR_CUT_LAYERS, compute_dtype="float32",
+                                      remat="none")
+    params = TT.init_params(torch.Generator().manual_seed(args.seed), cfg, device=DEVICE)
+    data = torch.load(os.path.join(args.workdir, "pipe.pt"))
+    sp = local_stage(stack_stage_params(params, cfg, 2), g)
+    del params
+    sync()
+    t0 = time.perf_counter()
+    loss, grads = pipelined_loss_and_grad(cfg, sp, data["tokens"], data["labels"], 2, group=g)
+    sync()
+    out.update(pipe_s=time.perf_counter() - t0, pipe_loss=loss.cpu(),
+               pipe_wq=grads["groups"]["pos0_attn"]["wq"][0].cpu(),
+               pipe_embed=grads["embed"]["table"][0].cpu() if args.rank == 0 else None)
+    del sp, grads
+    torch.cuda.empty_cache()
+    # expert parallelism at ep 2 against the dense path (f32)
+    cfg = get_config("qwen3-moe-30b-a3b").replace(n_layers=MOE_LAYERS, compute_dtype="float32")
+    params = TT.init_params(torch.Generator().manual_seed(args.seed), cfg, device=DEVICE)
+    batch = {k: v.to(DEVICE) for k, v in torch.load(os.path.join(args.workdir, "moe.pt")).items()}
+
+    def loss_and_grads(tree, group):
+        leaves = tree_map(lambda a: a.detach().requires_grad_(), tree)
+        loss = TT.loss_fn(leaves, batch, cfg, ep_group=group)
+        paths, flat = zip(*leaf_paths(leaves))
+        return loss.detach(), dict(zip(paths, torch.autograd.grad(loss, flat)))
+
+    dense_loss, dense = loss_and_grads(params, None)
+    sync()
+    t0 = time.perf_counter()
+    ep_loss, ep = loss_and_grads(moe.local_experts(params, cfg, g), g)
+    sync()
+    out["ep_s"] = time.perf_counter() - t0
+    n = cfg.n_experts // args.world
+    rel = 0.0
+    for path, grad in ep.items():
+        want = dense[path]
+        if "_moe" in path and path.endswith(("['wi']", "['wo']")):
+            want = want[:, args.rank * n:(args.rank + 1) * n]
+        rel = max(rel, float((grad - want).abs().max() / want.abs().max().clamp(min=1e-30)))
+    out.update(ep_loss=float(ep_loss), dense_loss=float(dense_loss), ep_grad_rel=rel,
+               ep_leaves=len(ep), peak_bytes=torch.cuda.max_memory_allocated())
+    torch.save(out, os.path.join(args.workdir, f"rank{args.rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def train_parallel(seed: int) -> dict:
+    """(e) two gloo ranks on cuda:0: the compressed all-reduce, the
+    two-stage pipeline by group= (and here by devices=), expert
+    parallelism; the sequential references here."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.params import leaf_paths, tree_map
+    from repro_torch.train.pipeline import pipelined_loss_and_grad, stack_stage_params
+    cfg = get_config(LM_ARCH).replace(n_layers=TR_CUT_LAYERS, compute_dtype="float32",
+                                      remat="none")
+    rng = np.random.default_rng(seed + 20)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TR_PIPE_M, 1, TR_PIPE_S)).astype(np.int32))
+    lab = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TR_PIPE_M, 1, TR_PIPE_S)).astype(np.int32))
+    mcfg = get_config("qwen3-moe-30b-a3b")
+    moe_batch = {k: torch.from_numpy(rng.integers(0, mcfg.vocab_size, (TR_EP_B, TR_EP_S))
+                                     .astype(np.int32)) for k in ("tokens", "labels")}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"tokens": tok, "labels": lab}, os.path.join(tmp, "pipe.pt"))
+        torch.save(moe_batch, os.path.join(tmp, "moe.pt"))
+        env_vars = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", str(r), "--world", "2",
+             "--workdir", tmp, "--job", "train", "--seed", str(seed)], env=env_vars,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+        # meanwhile: the sequential reference and the pipeline by devices=
+        params = TT.init_params(torch.Generator().manual_seed(seed), cfg, device=DEVICE)
+        leaves = tree_map(lambda a: a.detach().requires_grad_(), params)
+        tk, lb = tok.to(DEVICE), lab.to(DEVICE)
+        loss = sum(TT.loss_fn(leaves, {"tokens": tk[i], "labels": lb[i]}, cfg)
+                   for i in range(TR_PIPE_M)) / TR_PIPE_M
+        ref_wq, ref_embed = torch.autograd.grad(
+            loss, [leaves["groups"]["pos0_attn"]["wq"], leaves["embed"]["table"]])
+        ref_loss = float(loss.detach())
+        del leaves, loss
+        sync()
+        t1 = time.perf_counter()
+        dl, dg = pipelined_loss_and_grad(cfg, stack_stage_params(params, cfg, 2), tok, lab, 2,
+                                         devices=[DEVICE, DEVICE])
+        sync()
+        out["pipe_devices_s"] = time.perf_counter() - t1
+        per = ref_wq.shape[0] // 2
+        stage_wq = [dg["groups"]["pos0_attn"]["wq"][s] for s in range(2)]
+        stage_embed = dg["embed"]["table"][0]
+        del params, dg
+        torch.cuda.empty_cache()
+        try:
+            logs = [p.communicate(timeout=RANK_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        out["ranks_s"] = time.perf_counter() - t0
+        for p, (o, e) in zip(procs, logs):
+            assert p.returncode == 0, f"a gloo rank failed ({p.returncode}): {e[-3000:]}"
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+
+    def grad_rel(got, want):
+        return float((got.to(want.device) - want).abs().max() / want.abs().max())
+
+    out.update(
+        pipe_ref_loss=ref_loss, pipe_devices_loss=float(dl),
+        pipe_group_loss=[float(r["pipe_loss"]) for r in ranks],
+        pipe_devices_wq_rel=max(grad_rel(stage_wq[s], ref_wq[s * per:(s + 1) * per])
+                                for s in range(2)),
+        pipe_devices_embed_rel=grad_rel(stage_embed, ref_embed),
+        pipe_group_wq_rel=max(grad_rel(ranks[s]["pipe_wq"], ref_wq[s * per:(s + 1) * per])
+                              for s in range(2)),
+        pipe_group_embed_rel=grad_rel(ranks[0]["pipe_embed"], ref_embed),
+        pipe_group_s=[r["pipe_s"] for r in ranks],
+        compress_equal_cpu=[r["compress_equal_cpu"] for r in ranks],
+        compress_rel=[r["compress_rel"] for r in ranks],
+        compress_ms=[r["compress_ms"] for r in ranks],
+        ep_loss=[r["ep_loss"] for r in ranks], dense_loss=[r["dense_loss"] for r in ranks],
+        ep_grad_rel=[r["ep_grad_rel"] for r in ranks], ep_s=[r["ep_s"] for r in ranks],
+        rank_peak_bytes=[r["peak_bytes"] for r in ranks])
+    for key in ("pipe_devices_loss", "pipe_group_loss"):
+        for got in np.atleast_1d(out[key]):
+            assert abs(got - ref_loss) / abs(ref_loss) < 1e-5, f"{key} {got} vs {ref_loss}"
+    for key in ("pipe_devices_wq_rel", "pipe_devices_embed_rel", "pipe_group_wq_rel",
+                "pipe_group_embed_rel"):
+        assert out[key] < 2e-4, f"{key} {out[key]}"
+    assert all(all(e) for e in out["compress_equal_cpu"]), "compressed all-reduce: card != CPU"
+    for r in ranks:
+        assert abs(r["ep_loss"] - r["dense_loss"]) / abs(r["dense_loss"]) < 1e-5, r["ep_loss"]
+        assert r["ep_grad_rel"] < 1e-4, f"expert-parallel gradients off by {r['ep_grad_rel']}"
+    return out
+
+
+def train_phase(seed: int, smi: str, wrappers: dict) -> None:
+    """20. LM training, through drive() with no kernel needed (it launches
+    none of the six): (a) granite-3-2b at full width and depth, (b) repeat
+    and resume, (c) accumulation, (d) every smoke config against the CPU,
+    (e) the parallel paths in two gloo ranks."""
+    t_phase = time.perf_counter()
+    left = torch.cuda.memory_allocated()
+
+    def run():
+        out = {"granite": train_granite(seed)}
+        for key, fn in (("cut", train_cut), ("smoke", train_smoke),
+                        ("parallel", train_parallel)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[key] = fn(seed)
+        return out
+
+    out, counts = drive(wrappers, (), run)
+    out.update(card=smi, launches=counts, bytes_left_from_earlier_phases=left,
+               phase_s=time.perf_counter() - t_phase)
+    g, c, p = out["granite"], out["cut"], out["parallel"]
+    print(f"lm train granite-3-2b ({smi}): {g['global_batch']} x {g['seq']} tokens, accum "
+          f"{g['accum']}; step {g['step_s_median']:.3f} s median of {g['step_s']} "
+          f"({g['tokens_s']:.0f} tok/s; bound {g['step_bound_s']:.4f} s, "
+          f"{g['step_bound_flops']:.3e} FLOP at 989 TFLOP/s bf16, share {g['step_share']:.3f}); "
+          f"update {g['update_ms_median']:.3f} ms (bound {g['update_bound_ms']:.3f} ms, "
+          f"{g['update_bound_bytes']} B at 3.35 TB/s); peak {g['peak_bytes']} B; losses "
+          f"{g['losses']}, grad_norm {g['grad_norm']}, lr {g['lr']}; launches {counts}")
+    print(f"lm train granite-3-2b profile ({smi}): {g['profile']} (idle share "
+          f"{g['device_idle_share']})")
+    print(f"lm train cut to {c['layers']} layers ({smi}): repeat bitwise {c['repeat_bitwise']}, "
+          f"preempted after {c['preempted_after_steps']} steps, resumed {c['resumed_steps']}, "
+          f"resume bitwise {c['resume_bitwise']}, CPU restore bitwise "
+          f"{c['restore_on_cpu_bitwise']}; save {c['save_bytes']} B in {c['save_s']:.3f} s "
+          f"({c['save_gb_s']:.3f} GB/s); accum 1 vs 4 loss rel {c['accum_loss_rel']:.3e}")
+    print(f"lm train parallel ({smi}): pipeline loss {p['pipe_ref_loss']:.6f} (devices "
+          f"{p['pipe_devices_loss']:.6f}, group {p['pipe_group_loss']}), compressed "
+          f"all-reduce equal to the CPU {p['compress_equal_cpu']}, expert-parallel loss "
+          f"{p['ep_loss']} vs dense {p['dense_loss']}, gradients within {p['ep_grad_rel']}")
+    print("lm training: " + json.dumps(out))
+    assert not any(counts.values()), f"the training path launched a kernel of the six: {counts}"
 
 
 def ann_phases(args):

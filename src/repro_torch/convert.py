@@ -30,6 +30,7 @@ from repro_torch.quant.int8 import Int8Data
 from repro_torch.quant.pq import PQCodebook
 from repro_torch.serve.api import DEFAULT_TOP_T
 from repro_torch.serve.knn_memory import KNNMemory
+from repro_torch.train.optimizer import AdamWState
 from repro_torch.utils import Device, resolve_device
 
 FIELDS = ("centroids", "starts", "point_ids", "codes", "pq.centers",
@@ -177,11 +178,9 @@ def knn_memory_from_numpy(fields: Mapping[str, object], device: Device = None) -
                      top_t=int(fields.get("top_t", DEFAULT_TOP_T)))
 
 
-def model_params_from_numpy(cfg: ModelConfig, tree, device: Device = None) -> Transformer:
-    """A JAX model's parameter tree as nested dicts of numpy arrays
-    (`jax.tree.map(np.asarray, params)`) → the port's `Transformer` on
-    `device`. Every leaf must have the shape `cfg`'s definitions give; the
-    values are copied as they are (the layouts are JAX's)."""
+def _params_from_numpy(cfg: ModelConfig, tree, device: Device) -> dict:
+    """A numpy parameter tree checked against cfg's definitions → a tree of
+    f32 tensors on `device` (the values as they are)."""
     want = dict(prm.leaf_paths(abstract_params(cfg)))
     got = dict(prm.leaf_paths(tree))
     if set(want) != set(got):
@@ -192,6 +191,26 @@ def model_params_from_numpy(cfg: ModelConfig, tree, device: Device = None) -> Tr
             raise ValueError(f"{path}: shape {np.shape(got[path])}, "
                              f"expected {tuple(meta.shape)}")
     dev = resolve_device(device)
-    params = prm.tree_map(
+    return prm.tree_map(
         lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev), tree)
-    return Transformer(cfg, params, device=dev)
+
+
+def model_params_from_numpy(cfg: ModelConfig, tree, device: Device = None) -> Transformer:
+    """A JAX model's parameter tree as nested dicts of numpy arrays
+    (`jax.tree.map(np.asarray, params)`) → the port's `Transformer` on
+    `device`. Every leaf must have the shape `cfg`'s definitions give; the
+    values are copied as they are (the layouts are JAX's)."""
+    params = _params_from_numpy(cfg, tree, device)
+    return Transformer(cfg, params, device=params["final_norm"]["scale"].device)
+
+
+def train_state_from_numpy(cfg: ModelConfig, params_tree, opt_state, device: Device = None):
+    """A JAX training state as numpy — the parameter tree and an
+    `AdamWState` (step, m, v) whose m and v are trees like it — → the
+    port's (params, `repro_torch.train.optimizer.AdamWState`) on `device`,
+    the step as an int32 0-d tensor."""
+    step, m, v = opt_state
+    params = _params_from_numpy(cfg, params_tree, device)
+    dev = params["final_norm"]["scale"].device
+    return params, AdamWState(torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
+                              _params_from_numpy(cfg, m, dev), _params_from_numpy(cfg, v, dev))

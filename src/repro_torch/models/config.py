@@ -51,7 +51,7 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     # serving / distribution knobs
-    remat: str = "block"             # "none" | "block" (a JAX compile hint; kept, unread)
+    remat: str = "block"             # "none" | "block": checkpoint each group in training
     # sub-quadratic? (controls long_500k applicability)
     subquadratic: bool = False
 

@@ -10,13 +10,24 @@ sorted (expert) order, the order JAX's scatter adds them — and summed
 over k one slot at a time. `index_add_` on CUDA would add with atomics
 and not give the same bits twice.
 
-JAX's `_moe_shardmap` (expert parallelism over a mesh) is not ported.
+Expert parallelism (JAX's `_moe_shardmap`): under `ep_group`, a
+torch.distributed group of ep ranks, rank r holds experts
+[r·E/ep, (r+1)·E/ep) of `wi` and `wo` (`local_experts` cuts them) and the
+whole router. Every rank routes every token, keeps the slots of its own
+experts (the same capacity and sort order as the dense path), and the
+partial outputs are summed by one all-reduce a layer. The input and the
+router are read by every rank for its own part, so their gradients are
+summed across ranks (`collectives.sum_grads`); the output's is not
+(`collectives.sum_shared`). The sum across ranks adds in another order
+than the dense path's slot order, so the two agree to rounding.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch import collectives
 from repro_torch.models.params import ParamDef
 from repro_torch.utils import topk_first
 
@@ -97,9 +108,47 @@ def _moe_dense(p, x, cfg):
     return out.reshape(B, S, d)
 
 
-def moe_mlp(p, x, cfg):
-    """x: (B, S, d) → (B, S, d)."""
+def _moe_ep(p, x, cfg, group):
+    dt = x.dtype
+    B, S, d = x.shape
+    T = B * S
+    E, k = cfg.n_experts, cfg.experts_per_token
+    E_local = p["wi"].shape[0]
+    ep = dist.get_world_size(group)
+    if E_local * ep != E:
+        raise ValueError(f"{E_local} local experts × {ep} ranks != {E} experts")
+    cap = int((T * k * cfg.capacity_factor) // E + 1)
+    xt = collectives.sum_grads(x.reshape(T, d), group)
+    gates, eidx = _route(collectives.sum_grads(p["router"], group), xt, k)
+    out = _dispatch_compute_combine(p, xt, gates, eidx, dist.get_rank(group) * E_local,
+                                    E_local, cap, dt)
+    return collectives.sum_shared(out, group).reshape(B, S, d)
+
+
+def moe_mlp(p, x, cfg, ep_group=None):
+    """x: (B, S, d) → (B, S, d); expert-parallel over `ep_group` when given
+    (p then holds this rank's experts, see `local_experts`)."""
+    if ep_group is not None:
+        return _moe_ep(p, x, cfg, ep_group)
     return _moe_dense(p, x, cfg)
+
+
+def local_experts(params, cfg, group):
+    """This rank's block of every MoE leaf's experts in a model's parameter
+    tree (`wi` and `wo`, expert axis after the group axis; views): rank r
+    of ep keeps experts [r·E/ep, (r+1)·E/ep). Every other leaf is kept
+    whole."""
+    ep, r = dist.get_world_size(group), dist.get_rank(group)
+    if cfg.n_experts % ep:
+        raise ValueError(f"{cfg.n_experts} experts do not split over {ep} ranks")
+    n = cfg.n_experts // ep
+    out = dict(params)
+    out["groups"] = {
+        key: (sub if not key.endswith("_moe") else
+              {"router": sub["router"], "wi": sub["wi"][:, r * n:(r + 1) * n],
+               "wo": sub["wo"][:, r * n:(r + 1) * n]})
+        for key, sub in params["groups"].items()}
+    return out
 
 
 def moe_aux_loss(p, x, cfg):

@@ -10,6 +10,13 @@ tensors; `Transformer` is the `nn.Module` that owns such a tree (its
 submodules and parameter names follow the tree: "groups.pos0_attn.wq").
 Decode caches are stacked over groups, as in JAX; `decode_step` updates
 them in place and returns them.
+
+Training: where autograd records and `cfg.remat == "block"`, each group
+runs under `torch.utils.checkpoint` (JAX wraps its scan body in
+`jax.checkpoint`): only the group's input is kept, and its activations are
+computed again in the backward pass. `params["groups"]` may also be a list
+of per-group trees (the trainer's leaves, `train/train_loop.py`), and
+`ep_group` runs the MoE layers expert-parallel (`models/moe.py`).
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import params as prm
 from repro_torch.models.attention import attention_block, attn_def, init_cache_def
@@ -117,7 +125,29 @@ def _group(groups, gi: int):
     return prm.tree_map(lambda a: a[gi], groups)
 
 
-def _apply_group(gp, x, positions, cfg, mask_mode, states, cache_index):
+def _unstack(groups, n_groups: int):
+    """The stacked group tree as n_groups per-group trees of views: one
+    unbind a leaf, whose backward is one stack (a slice each would add a
+    zero-filled stack a group)."""
+    parts = prm.tree_map(lambda a: a.unbind(0), groups, lambda a: isinstance(a, torch.Tensor))
+    return [prm.tree_map(lambda t: t[gi], parts, lambda t: isinstance(t, tuple))
+            for gi in range(n_groups)]
+
+
+def _cast_group(gp, cfg: ModelConfig, n_groups: int):
+    """`cast_big_params` on one group's slices of a stack of n_groups: the
+    same leaves (ndim ≥ 3 and more than 1e6 elements in the stack) in the
+    compute dtype."""
+    dt = DTYPES[cfg.compute_dtype]
+    if dt == torch.float32:
+        return gp
+    return prm.tree_map(
+        lambda a: a.to(dt) if (a.dtype == torch.float32 and a.dim() >= 2
+                               and a.numel() * n_groups > 1_000_000) else a, gp)
+
+
+def _apply_group(gp, x, positions, cfg, mask_mode, states, cache_index,
+                 ep_group=None):
     """One pass of block_pattern. states: dict pos{i}_{kind} → state or None."""
     new_states = {}
     for i, kind in enumerate(cfg.block_pattern):
@@ -134,10 +164,16 @@ def _apply_group(gp, x, positions, cfg, mask_mode, states, cache_index):
         if _has_mlp(cfg, i):
             h2 = rmsnorm(gp[f"pos{i}_norm2"], x, cfg.norm_eps)
             if i in cfg.moe_positions:
-                x = x + moe_mlp(gp[f"pos{i}_moe"], h2, cfg)
+                x = x + moe_mlp(gp[f"pos{i}_moe"], h2, cfg, ep_group)
             else:
                 x = x + mlp(gp[f"pos{i}_mlp"], h2, cfg)
     return x, new_states
+
+
+def _block(gp, x, positions, cfg, mask_mode, n_groups, ep_group):
+    """One group in sequence mode, its big leaves cast first."""
+    return _apply_group(_cast_group(gp, cfg, n_groups), x, positions, cfg,
+                        mask_mode, None, None, ep_group)
 
 
 def _embed_inputs(params, inputs, cfg: ModelConfig):
@@ -155,24 +191,28 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
-def _run(params, inputs, cfg: ModelConfig):
+def _run(params, inputs, cfg: ModelConfig, ep_group=None):
     """Embed, every group, final norm → (hidden (B,S,d), per-group states)."""
     x, mask_mode = _embed_inputs(params, inputs, cfg)
     positions = _positions(x.shape[0], x.shape[1], x.device)
-    groups = cast_big_params(params["groups"], cfg)
+    groups = params["groups"]
+    if isinstance(groups, dict):
+        groups = _unstack(groups, cfg.n_groups)
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
     states = []
-    for gi in range(cfg.n_groups):
-        x, st = _apply_group(_group(groups, gi), x, positions, cfg, mask_mode,
-                             None, None)
+    for gp in groups:
+        args = (gp, x, positions, cfg, mask_mode, len(groups), ep_group)
+        x, st = (checkpoint(_block, *args, use_reentrant=False) if remat
+                 else _block(*args))
         states.append(st)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), states
 
 
-def forward(params, inputs, cfg: ModelConfig):
+def forward(params, inputs, cfg: ModelConfig, ep_group=None):
     """Sequence-mode forward. Returns (hidden (B,S,d), None): JAX's tuple,
     whose states slot (`collect_states`, which nothing calls) is not
     ported."""
-    return _run(params, inputs, cfg)[0], None
+    return _run(params, inputs, cfg, ep_group)[0], None
 
 
 def _stack(per_group):
@@ -188,9 +228,9 @@ def logits_from_hidden(params, x, cfg: ModelConfig):
     return logits
 
 
-def loss_fn(params, batch, cfg: ModelConfig):
+def loss_fn(params, batch, cfg: ModelConfig, ep_group=None):
     """Next-token (causal) or frame-classification (encoder) loss."""
-    x, _ = forward(params, batch, cfg)
+    x, _ = forward(params, batch, cfg, ep_group)
     logits = logits_from_hidden(params, x, cfg)
     if cfg.frontend == "vision":                # loss over text positions only
         logits = logits[:, cfg.n_prefix_embeds:, :]

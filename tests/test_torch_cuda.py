@@ -14,7 +14,10 @@ test_torch_distributed.py, test_torch_models.py and
 test_torch_lm_serve.py hold against the JAX package); the static
 analyzer's contracts are traced on the card over the kernels
 (repro_torch.analysis: the CLI, the device-to-host rule, Lloyd's (n,)
-vectors, search tiles under torch's sync check). This file imports
+vectors, search tiles under torch's sync check); and LM training: a
+train step of every smoke config on the card against the CPU,
+accumulation, resume bit for bit, the compressed all-reduce of CUDA
+tensors over gloo, and no fallback to the CPU. This file imports
 nothing of JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -1261,3 +1264,132 @@ def test_lm_entry_points_turn_reduced_precision_off(cuda):
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
     resolve_device(None)
     assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
+
+
+# --------------------------------------------------------- LM training on the card
+
+def _train_twins(cuda, arch):
+    """(cfg f32, the same parameters on the CPU and on the card, a batch of
+    4 × 16 from the port's pipeline)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import for_model
+    from repro_torch.models import params as prm, transformer as TT
+    cfg = get_config(arch).smoke_config().replace(compute_dtype="float32")
+    cpu = TT.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = prm.tree_map(lambda a: a.to(cuda, copy=True), cpu)
+    return cfg, cpu, card, for_model(cfg, seq_len=16, global_batch=4).batch_at(0)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step (f32) on the card against the same step on the CPU:
+    loss and grad_norm within 1e-5 relative, lr equal, every m leaf (0.1 ×
+    the clipped gradient) within 1e-4 of its largest |value|, every
+    parameter within rtol 1e-5 and atol 1e-4, the step's lr: Adam's first
+    update is lr·g/(|g| + ε), so where |g| is near ε a last-bit difference
+    in g moves the element by up to the step (xlstm's gates: 3.4e-5)."""
+    from repro_torch.models import params as prm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import make_train_step
+    cfg, cpu, card, batch = _train_twins(cuda, arch)
+    step = make_train_step(cfg, opt.warmup_cosine(1e-3, 10, 100))
+    pc, sc, mc = step(cpu, opt.init(cpu), batch)
+    pg, sg, mg = step(card, opt.init(card), {k: v.to(cuda) for k, v in batch.items()})
+    assert sg.step.device.type == "cuda"
+    for key in ("loss", "grad_norm"):
+        assert abs(float(mg[key]) - float(mc[key])) <= 1e-5 * abs(float(mc[key])), key
+    assert float(mg["lr"]) == float(mc["lr"])
+    want = dict(prm.leaf_paths(sc.m))
+    for path, t in prm.leaf_paths(sg.m):
+        torch.testing.assert_close(t.cpu(), want[path], rtol=0,
+                                   atol=1e-4 * float(want[path].abs().max()), msg=path)
+    want = dict(prm.leaf_paths(pc))
+    for path, t in prm.leaf_paths(pg):
+        torch.testing.assert_close(t.cpu(), want[path], rtol=1e-5, atol=1e-4, msg=path)
+
+
+def test_grad_accum_on_card(cuda):
+    """accum 1 against 4 on one batch of granite's smoke config at bf16
+    compute, JAX's bars: loss rtol 2e-4; parameters rtol 6e-3, atol 5e-4."""
+    from repro_torch.models import params as prm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import make_train_step
+    cfg, _, card, batch = _train_twins(cuda, "granite-3-2b")
+    cfg = cfg.replace(compute_dtype="bfloat16")
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    lr_fn = opt.warmup_cosine(1e-3, 5, 100)
+    clone = lambda t: prm.tree_map(lambda a: a.clone(), t)  # noqa: E731
+    p1, _, m1 = make_train_step(cfg, lr_fn, accum=1)(clone(card), opt.init(card), batch)
+    p4, _, m4 = make_train_step(cfg, lr_fn, accum=4)(clone(card), opt.init(card), batch)
+    assert abs(float(m1["loss"]) - float(m4["loss"])) <= 2e-4 * abs(float(m1["loss"]))
+    for (_, a), (_, b) in zip(prm.leaf_paths(p1), prm.leaf_paths(p4)):
+        torch.testing.assert_close(a, b, rtol=6e-3, atol=5e-4)
+
+
+def test_resume_on_card_is_bitwise(cuda, tmp_path):
+    """A 4-step run resumed from its step-3 checkpoint equals the
+    uninterrupted run bit for bit on the card, twice-run equal too, and the
+    checkpoint restores onto the CPU bit for bit."""
+    import shutil
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import for_model
+    from repro_torch.models import params as prm
+    from repro_torch.train.train_loop import train
+    cfg = get_config("granite-3-2b").smoke_config()
+    pipe = for_model(cfg, seq_len=32, global_batch=4)
+    kw = dict(steps=4, lr=1e-3, log_every=100, seed=2, device=cuda)
+    ref = train(cfg, pipe, **kw)
+    again = train(cfg, pipe, **kw)
+    mgr = CheckpointManager(str(tmp_path), keep=5)
+    train(cfg, pipe, ckpt_manager=mgr, ckpt_every=2, **kw)
+    assert mgr.steps() == [1, 3, 4]
+    cpu_p, cpu_s, _ = mgr.restore_train_state(cfg, device="cpu")
+    shutil.rmtree(tmp_path / "ckpt_00000004")
+    p, s, losses = train(cfg, pipe, ckpt_manager=mgr, ckpt_every=100, **kw)
+    assert len(losses) == 1
+    for run in (again, (p, s)):
+        for a, b in zip((run[0], run[1].m, run[1].v), (ref[0], ref[1].m, ref[1].v)):
+            for (pa, ta), (_, tb) in zip(prm.leaf_paths(a), prm.leaf_paths(b)):
+                assert ta.device.type == "cuda" and torch.equal(ta, tb), pa
+    for a, b in zip((cpu_p, cpu_s.m, cpu_s.v), (ref[0], ref[1].m, ref[1].v)):
+        for (pa, ta), (_, tb) in zip(prm.leaf_paths(a), prm.leaf_paths(b)):
+            assert ta.device.type == "cpu" and torch.equal(ta, tb.cpu()), pa
+
+
+def test_compressed_all_reduce_of_cuda_tensors_over_gloo(cuda, tmp_path):
+    """gloo's all-reduce of CUDA tensors (a one-rank group): the compressed
+    reduce and three error-feedback steps equal the same calls on CPU
+    copies bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.train import grad_compress as gc
+    g = torch.Generator().manual_seed(3)
+    x = [torch.randn((2048, 2048), generator=g) for _ in range(3)]
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        assert torch.equal(gc.compressed_all_reduce(x[0].to(cuda)).cpu(),
+                           gc.compressed_all_reduce(x[0]))
+        ec, eg = torch.zeros_like(x[0]), torch.zeros_like(x[0]).to(cuda)
+        for xi in x:
+            rc, ec = gc.compressed_all_reduce_with_feedback(xi, ec)
+            rg, eg = gc.compressed_all_reduce_with_feedback(xi.to(cuda), eg)
+            assert rg.device.type == "cuda"
+            assert torch.equal(rg.cpu(), rc) and torch.equal(eg.cpu(), ec)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_train_asked_for_cuda_without_a_card_raises(cuda, monkeypatch):
+    """No fallback: with no card found, train(device="cuda") raises before
+    any step, and nothing runs on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import for_model
+    from repro_torch.train.train_loop import train
+    cfg = get_config("granite-3-2b").smoke_config()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    steps = []
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(cfg, for_model(cfg, 16, 2), steps=2, device="cuda",
+              on_log=lambda s, m: steps.append(s), log_every=1)
+    assert steps == []

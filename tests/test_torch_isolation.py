@@ -51,7 +51,11 @@ def test_every_port_module_imports_without_jax():
                      "repro_torch.models.ssm", "repro_torch.models.transformer",
                      "repro_torch.configs", "repro_torch.configs.granite_3_2b",
                      "repro_torch.configs.xlstm_350m",
-                     "repro_torch.configs.qwen3_moe_30b_a3b"):
+                     "repro_torch.configs.qwen3_moe_30b_a3b",
+                     "repro_torch.collectives", "repro_torch.train.optimizer",
+                     "repro_torch.train.train_loop", "repro_torch.train.grad_compress",
+                     "repro_torch.train.pipeline", "repro_torch.data.pipeline",
+                     "repro_torch.ckpt.checkpoint", "repro_torch.launch.train"):
             assert name in names, (name, names)
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k, v in sys.modules.items() if v is not None)

@@ -296,7 +296,9 @@ def test_moe_capacity_drop_keeps_output_finite(refs):
 
 
 def test_remat_matches_no_remat(refs):
-    """`remat` is a JAX compile hint the port keeps and does not read."""
+    """Without autograd recording, `remat` changes nothing: the groups run
+    under torch.utils.checkpoint only where gradients are recorded
+    (test_torch_train.py holds the recorded case)."""
     ref = refs.get("granite-3-2b")
     cfg, model = port_model(ref, compute_dtype="bfloat16")
     batch = port_batch(ref["batch"])
