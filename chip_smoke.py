@@ -234,7 +234,7 @@ just after, and fails if one of its kernels was never launched:
      67 TFLOP/s), on a "plain work" line; the probe scorer's record also
      gives it at phase 16's m = 25 ("m25", one 64-query tile of shard 0).
      "launches" of a kernel sum every driven path above but the filtered
-     one of phase 5;
+     one of phase 5, and phase 21's;
  19. the LM serving path, after phases 1-18's tensors are freed,
      through drive() with no kernel needed (it launches none of the six;
      its counts, all 0, are printed and not added to "launches"):
@@ -304,7 +304,38 @@ just after, and fails if one of its kernels was never launched:
      of 48 layers (f32, 2 x 1,024 tokens): loss within 1e-5 and every
      gradient within 1e-4 of its scale against the dense path. Prints
      "lm train ..." lines and one "lm training: {...}" JSON line;
- 21. the {"kernels": [...]} line, then the device line, last.
+ 21. the launchers, after phase 20's tensors are freed: (a) the ANN dry
+     run (repro_torch.launch.ann_dryrun) of both meshes (256 and 512
+     shards of 1,000,000 x 100, 2,500 partitions, PMAX 1,000, 1,024
+     queries, top_t 40, k 10) and both variants (f32 and PQ m = 25),
+     counted on meta tensors through a fake process group by the op
+     analysis (launch/op_analysis.py), each printed with fmt_summary
+     beside nvidia-smi's name and power limit: collective bytes =
+     D x nq x k x 8 and product FLOPs = route + LUTs + rerank (PQ) or
+     route + window (f32); (b) one shard at that size built from
+     make_manifold(seed + 7) (PQ 25), its 1,024 queries searched through
+     make_distributed_search_pq(group=) of a one-rank NCCL group on
+     cuda:0 (so the all-gather runs) through drive() with the probe
+     scorer required, then the group destroyed and the dry run made of
+     the same shard at world 1 and its pmax: argument bytes equal the
+     real tensors' bytes, product FLOPs equal the real search's (the op
+     analysis over it) and the formula, the dry run's probe-scorer calls
+     equal the launches, collective bytes equal; the same search once
+     more on the plain probe scorer, each of its tiles' real arguments
+     also given to the kernel: every tile within 1e-5 and -inf where the
+     plain version has it, ids >= 99% equal; prints the step (CUDA
+     events, median of 5 warm) beside its needed-bytes bound (the
+     distinct probed partitions' rows up to their extent and the
+     distinct rerank rows read once) and beside the dry run's
+     bound_step_s (an eager-byte estimate), each with its share, and the
+     peak (the arguments plus max_memory_allocated's rise) beside the
+     predicted peak_bytes; (c) `python -m
+     repro_torch.launch.serve --arch granite-3-2b --device cuda` and (d)
+     the four examples/torch/*.py (train_lm at EX_TRAIN_STEPS steps),
+     each a process, all started together, with a time limit: exit 0,
+     their lines printed ("launcher ..."). One "launchers: {...}" JSON
+     line; (b)'s launches are added to the kernels' "launches";
+ 22. the {"kernels": [...]} line, then the device line, last.
 
 It imports nothing of JAX and nothing of the JAX package (src/repro).
 """
@@ -372,6 +403,8 @@ MOE_LAYERS, MOE_PROMPT, MOE_NEW = 2, 1024, 32     # qwen3-moe-30b-a3b, depth cut
 TR_SEQ, TR_BATCH, TR_ACCUM, TR_STEPS, TR_LR = 4096, 8, 4, 4, 3e-4
 TR_CUT_LAYERS, TR_CUT_SEQ = 4, 1024
 TR_PIPE_M, TR_PIPE_S, TR_EP_B, TR_EP_S, TR_GRAD = 4, 1024, 2, 1024, 2048
+EX_TRAIN_STEPS = 100       # examples/torch/train_lm.py's steps (its default is 300)
+LAUNCH_TIMEOUT = 400       # seconds the serve CLI and the examples may take
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S = 3.35e12, 67e12, 495e12
 PEAK_BF16_S = 989e12   # the H100 SXM's dense bf16 tensor-core peak
 SMEM_WORDS_CLK = 32    # 4-byte words an SM's shared memory delivers a clock (128 B)
@@ -744,8 +777,13 @@ def main() -> int:
     gc.collect()                          # phase 19's tensors go here
     torch.cuda.empty_cache()
     train_phase(args.seed, smi, wrappers)
+    gc.collect()                          # phase 20's tensors go here
+    torch.cuda.empty_cache()
+    added = launch_phase(args.seed, smi, wrappers)
+    for k in kernels:
+        k["launches"] += added[k["name"]]
 
-    # 21. result lines
+    # 22. result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -1461,6 +1499,236 @@ def train_phase(seed: int, smi: str, wrappers: dict) -> None:
           f"{p['ep_loss']} vs dense {p['dense_loss']}, gradients within {p['ep_grad_rel']}")
     print("lm training: " + json.dumps(out))
     assert not any(counts.values()), f"the training path launched a kernel of the six: {counts}"
+
+
+# ------------------------------------------------------------------ launchers
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dryrun_flops(pq: bool, pmax: int) -> int:
+    """Product FLOPs of one device's search step (ann_dryrun's shapes):
+    the route (Q·Cᵀ), then the LUTs and the rerank of the maker's 256
+    (BUDGET) candidates (PQ), or the exact score of the whole top_t·pmax
+    window (f32)."""
+    from repro_torch.launch import ann_dryrun as a
+    route = 2 * a.NQ * a.C_LOCAL * a.D
+    if pq:
+        m = a.D // 4
+        return route + 2 * a.NQ * m * 16 * (a.D // m) + 2 * a.NQ * BUDGET * a.D
+    return route + 2 * a.NQ * a.TOP_T * pmax * a.D
+
+
+def needed_step_bytes(ivq, Q, parts, cands, final_k: int) -> int:
+    """Bytes one shard's PQ search step must move at the least: the
+    queries, centroids, PQ codebook and local base read once; each
+    distinct probed partition's extent, and its code rows and ids up to
+    that extent, read once; each distinct rerank candidate's row read
+    once; the (nq, final_k) ids and scores written once. `parts` and
+    `cands` are the step's probed partitions and rerank candidates."""
+    probed = torch.unique(torch.cat([p.reshape(-1) for p in parts]).long())
+    rows = int(ivq.extent[0][probed].sum())
+    cand = torch.unique(torch.cat([c.reshape(-1) for c in cands]))
+    n_cand = int((cand >= 0).sum())
+    m, d = ivq.part_codes.shape[3], Q.shape[1]
+    return (nbytes([Q, ivq.centroids, ivq.pq_centers, ivq.local_base])
+            + probed.numel() * 4 + rows * (m + 4) + n_cand * d * 4
+            + Q.shape[0] * final_k * 8)
+
+
+def launcher_procs(tmp: str) -> dict:
+    """Start the serve CLI and the four examples on the card, each a
+    process of its own, all at once → {name: Popen}."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    ex = ROOT / "examples" / "torch"
+    cmds = {
+        "serve": ["-m", "repro_torch.launch.serve", "--arch", LM_ARCH, "--device", "cuda"],
+        "quickstart": [str(ex / "quickstart.py")],
+        "ann_serving": [str(ex / "ann_serving.py")],
+        "knn_memory_decode": [str(ex / "knn_memory_decode.py")],
+        "train_lm": [str(ex / "train_lm.py"), "--steps", str(EX_TRAIN_STEPS),
+                     "--ckpt", os.path.join(tmp, "ckpt")],
+    }
+    return {k: subprocess.Popen([sys.executable, *c], cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for k, c in cmds.items()}
+
+
+def launch_phase(seed: int, smi: str, wrappers: dict) -> Counter:
+    """21. The launchers: (a) the ANN dry run on meta tensors, (b) one
+    dry-run shard searched for real against its dry run and against the
+    plain probe scorer, (c) the serve CLI and (d) the four examples as
+    processes → the launches of (b)'s driven path."""
+    import torch.distributed as dist
+    from repro_torch.core import search
+    from repro_torch.core.distributed import (build_sharded_ivf_pq,
+                                              make_distributed_search_pq)
+    from repro_torch.data.vectors import make_manifold
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pq_score import pq_score_probes
+    from repro_torch.launch import ann_dryrun as a
+    from repro_torch.launch.dryrun import fmt_summary
+    from repro_torch.launch.op_analysis import analyze
+    t_phase = time.perf_counter()
+    out: dict = {"card": smi}
+
+    # (a) both meshes, both variants, counted on meta tensors
+    out["dryrun"] = {}
+    for mp in (False, True):
+        for pq in (False, True):
+            r = a.run(mp, pq=pq)
+            print(f"dryrun {fmt_summary(r)} ({smi})")
+            key = f"{r['mesh']}_{'pq' if pq else 'baseline'}"
+            out["dryrun"][key] = {k: r[k] for k in ("memory", "collectives", "roofline",
+                                                    "per_device", "compile_s")}
+            want = r["n_chips"] * a.NQ * a.FINAL_K * 8
+            assert r["collective_bytes_total"] == want, f"dry run {key}: collective bytes"
+            assert r["per_device"]["flops"] == dryrun_flops(pq, a.PMAX), \
+                f"dry run {key}: product FLOPs {r['per_device']['flops']}"
+
+    # (b) one shard at the dry run's size, searched through a one-rank
+    # NCCL group, against the dry run of the same shard at world 1
+    ds = make_manifold(seed + 7, a.N_LOCAL, a.D, nq=a.NQ, device=DEVICE)
+    ivq, build_s = timed(lambda: build_sharded_ivf_pq(seed, ds.X, 1, a.C_LOCAL, a.D // 4,
+                                                      device=DEVICE))
+    Q = ds.Q.contiguous()
+    del ds
+    pmax = ivq.part_codes.shape[2]
+    real_args = nbytes(list(ivq)) + nbytes([Q])
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1, device_id=torch.device(DEVICE, 0))
+    try:
+        # the dry run's maker, at its defaults (rerank_k 256, q_chunk 128)
+        fn = make_distributed_search_pq(top_t=a.TOP_T, final_k=a.FINAL_K,
+                                        group=dist.group.WORLD)
+        fn(ivq, Q)                                  # warm
+        (ids, sc), counts = drive(wrappers, ("pq_score_probes",), lambda: fn(ivq, Q))
+        steps = []
+        for _ in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn(ivq, Q)
+            ev[1].record()
+            ev[1].synchronize()
+            steps.append(ev[0].elapsed_time(ev[1]))
+        sync()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(ivq, Q)
+        sync()
+        rise = torch.cuda.max_memory_allocated() - resident
+        real = analyze(fn, ivq, Q)
+        # the same search on the plain probe scorer; each tile's kernel
+        # held against it on the tile's real arguments, and the probed
+        # partitions and rerank candidates kept for the needed bytes
+        tiles, parts, cands = [], [], []
+        real_dedup = search.dedup_topk_window
+
+        def plain_probes(*pa):
+            want = ref.pq_score_probes_ref(*pa)
+            got = pq_score_probes(*pa)
+            fin = torch.isfinite(want)
+            tiles.append({"shape": list(pa[0].shape[:1]) + list(pa[3].shape[1:]),
+                          "inf_equal": torch.equal(torch.isinf(got), torch.isinf(want)),
+                          "close": torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5),
+                          "max_abs_err": float((got[fin] - want[fin]).abs().max())})
+            parts.append(pa[3])
+            return want
+
+        def kept_dedup(*a_, **k_):
+            r = real_dedup(*a_, **k_)
+            cands.append(r[0])
+            return r
+
+        with plain_version(search, "pq_score_probes", plain_probes), \
+                plain_version(search, "dedup_topk_window", kept_dedup):
+            pids, _ = fn(ivq, Q)
+        need = needed_step_bytes(ivq, Q, parts, cands, a.FINAL_K)
+    finally:
+        dist.destroy_process_group()
+    dry = a.run(False, pq=True, pmax=pmax, world=1)
+    print(f"dryrun {fmt_summary(dry)} ({smi})")
+    step_ms = sorted(steps)[2]
+    bound_s = dry["roofline"]["bound_step_s"]
+    need_ms, need_by = bound(need, dryrun_flops(True, pmax))
+    peak = real_args + rise
+    shard = {"pmax": pmax, "build_s": build_s, "launches": counts,
+             "argument_bytes_real": real_args,
+             "argument_bytes_dry": dry["memory"]["argument_bytes"],
+             "flops_real": real["flops"], "flops_dry": dry["per_device"]["flops"],
+             "probe_calls_dry": dry["per_device"]["kernels"]["pq_score_probes"]["calls"],
+             "collective_bytes_real": real["collective_bytes_total"],
+             "collective_bytes_dry": dry["collective_bytes_total"],
+             "hbm_bytes_dry": dry["per_device"]["hbm_bytes"],
+             "hbm_bytes_real_aten": real["hbm_bytes"],
+             "host_syncs_real": real["host_syncs"],
+             "step_ms_runs": steps, "step_ms": step_ms, "bound_step_s": bound_s,
+             "bound_dominant": dry["roofline"]["dominant"],
+             "bound_share": bound_s * 1e3 / step_ms,
+             "needed_bytes": need, "needed_bound_ms": need_ms, "needed_bound_by": need_by,
+             "needed_share": need_ms / step_ms,
+             "plain_scorer_tiles": len(tiles),
+             "kernel_max_abs_err": max(t["max_abs_err"] for t in tiles),
+             "kernel_tiles_close": all(t["inf_equal"] and t["close"] for t in tiles),
+             "ids_agree_plain_scorer": float((pids == ids).float().mean()),
+             "peak_rise_bytes": rise, "temp_bytes_dry": dry["memory"]["temp_bytes"],
+             "peak_bytes_real": peak, "peak_bytes_dry": dry["memory"]["peak_bytes"],
+             "peak_ratio_real_over_dry": peak / dry["memory"]["peak_bytes"],
+             "ids_valid": bool((ids >= 0).all()) and bool(torch.isfinite(sc).all())}
+    out["shard"] = shard
+    print(f"dryrun shard for real ({smi}): pmax {pmax}, step {step_ms:.3f} ms (median of 5, "
+          f"CUDA events) against the needed-bytes bound {need_ms:.4f} ms ({need_by}, "
+          f"{need} B), share {shard['needed_share']:.4f}, and the dry run's eager-byte "
+          f"estimate {bound_s * 1e3:.4f} ms ({shard['bound_dominant']}), share "
+          f"{shard['bound_share']:.3f}; the plain scorer's ids agree on "
+          f"{shard['ids_agree_plain_scorer']:.5f}, the kernel's max error "
+          f"{shard['kernel_max_abs_err']:.3g} over {len(tiles)} tiles; peak "
+          f"{peak} B (arguments {real_args} + rise {rise}) against predicted "
+          f"{shard['peak_bytes_dry']} B, ratio {shard['peak_ratio_real_over_dry']:.3f}; "
+          f"launches {counts}")
+    assert shard["ids_valid"], "the one-shard search returned a -1 or a non-finite score"
+    assert len(tiles) == counts["pq_score_probes"] and shard["kernel_tiles_close"], \
+        f"pq_score_probes against its plain version on the shard's tiles: {tiles}"
+    assert shard["ids_agree_plain_scorer"] >= 0.99, \
+        f"ids agree with the plain scorer on {shard['ids_agree_plain_scorer']}"
+    assert real_args == shard["argument_bytes_dry"], \
+        f"argument bytes: real {real_args}, dry run {shard['argument_bytes_dry']}"
+    assert real["flops"] == shard["flops_dry"] == dryrun_flops(True, pmax), \
+        f"product FLOPs: real {real['flops']}, dry run {shard['flops_dry']}"
+    assert shard["probe_calls_dry"] == counts["pq_score_probes"], \
+        f"probe scorer: {shard['probe_calls_dry']} dry calls, {counts} launches"
+    assert real["collective_bytes_total"] == dry["collective_bytes_total"], \
+        "collective bytes differ between the real search and its dry run"
+    del ivq, Q, ids, sc, real, pids, parts, cands
+    torch.cuda.empty_cache()
+
+    # (c) the serve CLI and (d) the four examples, each a process on the card
+    out["processes"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = launcher_procs(tmp)
+        try:
+            logs = {k: p.communicate(timeout=LAUNCH_TIMEOUT) for k, p in procs.items()}
+        finally:
+            for p in procs.values():
+                p.kill()
+                p.wait()
+        out["processes_s"] = time.perf_counter() - t0
+    for name, (o, e) in logs.items():
+        rc = procs[name].returncode
+        lines = o.strip().splitlines()
+        out["processes"][name] = {"rc": rc, "lines": lines[-12:]}
+        for line in lines[-12:]:
+            print(f"launcher {name}: {line}")
+        assert rc == 0, f"{name} exited {rc}: {e[-3000:]}"
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("launchers: " + json.dumps(out))
+    return Counter(counts)
 
 
 def ann_phases(args):
@@ -2911,8 +3179,10 @@ def ann_phases(args):
     code_bytes = int(packed.extent[parts].sum()) * M     # the rows probed
 
     def probe_bytes(pa, out, code_bytes):
-        return (code_bytes + pa[0].numel() * 4 + pa[3].numel() * 8 + pa[4].numel() * 4
-                + out.numel() * 4)
+        """Probed code rows, LUTs, int64 probes, coarse scores and one int32
+        extent a probe read once; the scores written once."""
+        return (code_bytes + pa[0].numel() * 4 + pa[3].numel() * (8 + 4)
+                + pa[4].numel() * 4 + out.numel() * 4)
 
     # the same kernel at the shard-parallel phase's m = 25 (one byte a
     # subspace), one tile of shard 0's probes

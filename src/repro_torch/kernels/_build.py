@@ -24,6 +24,7 @@ import tempfile
 from pathlib import Path
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -149,6 +150,25 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU: the plain version's case."""
     return not any(t.is_cuda for t in tensors) and all(
         t.device.type == "cpu" for t in tensors)
+
+
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the "meta" device (shapes, no data):
+    a dry run's case. A wrapper then returns its output's shape and
+    reports its kernel's work (`report`); it never launches."""
+    return all(t.device.type == "meta" for t in tensors)
+
+
+def report(name: str, nbytes: float, flops: float = 0.0) -> None:
+    """Tell every active dispatch mode that counts kernel work (one with a
+    `kernel_work(name, nbytes, flops)` method, as the dry run's op
+    analysis has) what kernel `name` would do: the bytes it must move and
+    its product FLOPs. A kernel launched through ctypes is seen by no
+    dispatch mode, so its wrapper's meta branch says it here."""
+    for mode in _get_current_dispatch_mode_stack():
+        work = getattr(mode, "kernel_work", None)
+        if work is not None:
+            work(name, nbytes, flops)
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:

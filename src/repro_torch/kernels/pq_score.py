@@ -41,16 +41,30 @@ def pq_score_probes(luts: torch.Tensor, part_codes: torch.Tensor,
     < 16. extent[p] is partition p's slot extent (`PackedIVF.extent`):
     slots inside it whose id is −1 are scored too, and the search masks
     them by id. CPU tensors take the plain version; CUDA tensors launch
-    the kernel.
+    the kernel; meta tensors (a dry run) give the output's shape and
+    report the kernel's bytes (`_probe_bytes`) to `_build.report`.
     """
     args = (luts, part_codes, extent, parts, psc)
     if _build.on_cpu(*args):
         return pq_score_probes_ref(*args)
+    if _build.on_meta(*args):
+        return _meta_probes(*args)
     _build.require_cuda(*args)
     return _launch_probes(*args)
 
 
-def _launch_probes(luts, part_codes, extent, parts, psc) -> torch.Tensor:
+def _probe_bytes(nq: int, t: int, pmax: int, m: int, code_bytes: int) -> int:
+    """Bytes the probe kernel must move: the probed code rows
+    (`code_bytes`), the (nq, m, 16) f32 LUTs, the (nq, t) int64 probe ids,
+    f32 coarse scores and the probed partitions' int32 extents read once,
+    the (nq, t·pmax) f32 scores written once. chip_smoke.py's bound for the
+    kernel counts the same."""
+    return code_bytes + nq * m * 16 * 4 + nq * t * (8 + 4 + 4) + nq * t * pmax * 4
+
+
+def _checked(luts, part_codes, extent, parts, psc):
+    """The kernel's arguments validated → (parts as int64, psc contiguous,
+    (nq, c, pmax, m, t))."""
     parts = parts.to(torch.int64).contiguous()
     psc = psc.contiguous()      # a router's top-t values may be a strided view
     _build.check(luts, "luts", torch.float32, 3)
@@ -65,6 +79,20 @@ def _launch_probes(luts, part_codes, extent, parts, psc) -> torch.Tensor:
         raise ValueError(f"shape mismatch: luts {tuple(luts.shape)}, part_codes "
                          f"{tuple(part_codes.shape)}, extent {tuple(extent.shape)}, "
                          f"parts {tuple(parts.shape)}, psc {tuple(psc.shape)}")
+    return parts, psc, (nq, c, pmax, m, t)
+
+
+def _meta_probes(luts, part_codes, extent, parts, psc) -> torch.Tensor:
+    """The dry run's branch: the output on meta, and the kernel's work
+    reported. The extent is data, so every probe counts pmax code rows:
+    an upper bound on the rows a real index's probes read."""
+    parts, psc, (nq, _, pmax, m, t) = _checked(luts, part_codes, extent, parts, psc)
+    _build.report("pq_score_probes", _probe_bytes(nq, t, pmax, m, nq * t * pmax * m))
+    return torch.empty((nq, t * pmax), dtype=torch.float32, device="meta")
+
+
+def _launch_probes(luts, part_codes, extent, parts, psc) -> torch.Tensor:
+    parts, psc, (nq, c, pmax, m, t) = _checked(luts, part_codes, extent, parts, psc)
     if part_codes.data_ptr() % 16:
         raise ValueError("part_codes must be 16-byte aligned (a fresh tensor)")
     out = torch.empty((nq, t * pmax), dtype=torch.float32, device=luts.device)

@@ -121,6 +121,19 @@ def test_pq_score_probes_refuses_a_misaligned_table(cuda):
         pq_score_probes(luts, shifted.view(codes.shape), sizes, parts, psc)
 
 
+def test_pq_score_probes_refuses_meta_mixed_with_cuda(cuda):
+    """A dry run's meta tensor never reaches a launch: mixed with CUDA
+    tensors, the wrapper raises and launches nothing."""
+    luts, codes, sizes, parts, psc = (torch.from_numpy(a).to(cuda)
+                                      for a in probe_case(2, 3, 4, 5, 4))
+    n0 = pq_score_probes.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pq_score_probes(luts.to("meta"), codes, sizes, parts, psc)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pq_score_probes(luts, codes.to("meta"), sizes, parts, psc)
+    assert pq_score_probes.launches == n0
+
+
 @pytest.mark.parametrize("n,c,d", [(100, 16, 32), (513, 100, 64),
                                    (64, 2000, 100), (1000, 777, 20), (70, 3, 5),
                                    (700, 33, 13),       # d % 4 != 0: 4-byte copies

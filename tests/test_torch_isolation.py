@@ -1,4 +1,5 @@
-"""The port imports nothing of JAX and nothing of the JAX package.
+"""The port, its examples (`examples/torch/`) and `chip_smoke.py` import
+nothing of JAX and nothing of the JAX package.
 
 Each check runs in a fresh interpreter whose `sys.modules` maps `jax`,
 `jaxlib` and `repro` to None, so any import of them — at module level or
@@ -55,7 +56,9 @@ def test_every_port_module_imports_without_jax():
                      "repro_torch.collectives", "repro_torch.train.optimizer",
                      "repro_torch.train.train_loop", "repro_torch.train.grad_compress",
                      "repro_torch.train.pipeline", "repro_torch.data.pipeline",
-                     "repro_torch.ckpt.checkpoint", "repro_torch.launch.train"):
+                     "repro_torch.ckpt.checkpoint", "repro_torch.launch.train",
+                     "repro_torch.launch.serve", "repro_torch.launch.ann_dryrun",
+                     "repro_torch.launch.dryrun", "repro_torch.launch.op_analysis"):
             assert name in names, (name, names)
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k, v in sys.modules.items() if v is not None)
@@ -73,5 +76,22 @@ def test_chip_smoke_imports_without_jax():
         assert callable(mod.main)
         import repro_torch.core, repro_torch.serve   # what main() imports
         import repro_torch.configs, repro_torch.models.transformer
+    """)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("name", ["quickstart", "ann_serving", "knn_memory_decode",
+                                  "train_lm"])
+def test_torch_example_imports_without_jax(name):
+    pytest.importorskip("torch")
+    r = _run(f"""
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "example", "examples/torch/{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        assert callable(mod.main)
+        assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+                       for k, v in sys.modules.items() if v is not None)
     """)
     assert r.returncode == 0, r.stderr

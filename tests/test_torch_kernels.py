@@ -215,12 +215,15 @@ def test_cpu_path_launches_nothing():
 @pytest.mark.parametrize("which", ["pq", "vq", "soar", "fused", "lloyd", "dense", "tree"])
 def test_non_cpu_tensor_never_falls_back(which):
     """A tensor that is not on the CPU must launch the kernel or raise;
-    a meta tensor can do neither, so the wrapper must raise."""
+    a meta tensor can do neither, so the wrapper must raise. The probe
+    scorer takes all-meta inputs as a dry run (it returns its output's
+    shape and reports its bytes, test_torch_launch_dryrun.py), so its
+    case mixes a CPU tensor with meta ones."""
     X = torch.empty((8, 4), device="meta")
     C = torch.empty((3, 4), device="meta")
     calls = {
         "pq": lambda: pq_score_probes(
-            torch.empty((1, 2, 16), device="meta"),
+            torch.zeros((1, 2, 16)),
             torch.empty((3, 5, 2), dtype=torch.uint8, device="meta"),
             torch.empty(3, dtype=torch.int32, device="meta"),
             torch.empty((1, 2), dtype=torch.int64, device="meta"),
