@@ -80,12 +80,13 @@ N_TRACE, D_TRACE, C_TRACE = 16_411, 16, 24
 NQ_TRACE, TOP_T, FINAL_K = 5, 6, 5
 
 
-def host_sync(func, args, kwargs, out) -> Optional[str]:
+def host_sync(func, args, kwargs, out, ins=None, outs=None) -> Optional[str]:
     """The reason op `func` (called on args / kwargs, giving `out`) makes
     the host wait for the device, or None: an op of `HOST_SYNC_OPS`;
     `repeat_interleave` by a tensor of repeats without `output_size`;
     `index` by a boolean (or uint8) mask; and any op that reads a CUDA
-    tensor and writes a CPU one (a device-to-host copy)."""
+    tensor and writes a CPU one (a device-to-host copy). `ins` / `outs`,
+    where the caller has them, are the input and output tensors."""
     name = str(func)
     if str(func.overloadpacket) in HOST_SYNC_OPS:
         return name
@@ -96,10 +97,11 @@ def host_sync(func, args, kwargs, out) -> Optional[str]:
             i is not None and i.dtype in (torch.bool, torch.uint8)
             for i in args[1]):
         return f"{name}:bool-index"
-    ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
-    if any(t.is_cuda for t in ins) and any(
-            isinstance(t, torch.Tensor) and t.device.type == "cpu"
-            for t in tree_leaves(out)):
+    if ins is None:
+        ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+    if outs is None:
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+    if any(t.is_cuda for t in ins) and any(t.device.type == "cpu" for t in outs):
         return f"{name}:cuda->cpu"
     return None
 

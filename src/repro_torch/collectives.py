@@ -14,11 +14,26 @@ transposes):
 The ops never initialise a process group. gloo's all-reduce takes CUDA
 tensors; its send and receive read host memory, so `shift` hands a CUDA
 tensor to gloo through a host copy (NCCL takes it as it lies).
+
+`host_staged_collectives` does the same for the functional collectives
+(`_c10d_functional`) that DTensor issues: on torch 2.11 gloo's versions
+of them crash (a segfault in `wait_tensor`, an all-gather even in a
+one-rank group) or, in the backward pass, give wrong sums on CUDA
+tensors, where its c10d all-reduce works (gloo's CUDA algorithms stage
+through host memory themselves). Inside it each such collective of CUDA
+tensors runs on host copies, waits, and its result comes back to the
+card; the compute around it stays on the card. `launch/mesh.set_mesh`
+enters it for a mesh of CUDA tensors over gloo.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import warnings
+
 import torch
 import torch.distributed as dist
+import torch.utils._pytree
 
 
 class _SumShared(torch.autograd.Function):
@@ -81,3 +96,47 @@ def sum_grads(x: torch.Tensor, group) -> torch.Tensor:
 
 def shift(x: torch.Tensor, group) -> torch.Tensor:
     return _Shift.apply(x, group)
+
+
+# the functional collectives DTensor issues, out of place
+_FUNCOLS = ("all_reduce", "all_reduce_coalesced", "all_gather_into_tensor",
+            "all_gather_into_tensor_coalesced", "reduce_scatter_tensor",
+            "reduce_scatter_tensor_coalesced", "all_to_all_single", "broadcast")
+
+
+def _host(a):
+    if isinstance(a, torch.Tensor):
+        return a.cpu()
+    if isinstance(a, (list, tuple)):
+        return type(a)(_host(x) for x in a)
+    return a
+
+
+def _staged(op, *args, **kwargs):
+    """op on host copies of its CUDA tensors, waited for, its outputs back
+    on the card."""
+    dev = next(t.device for t in torch.utils._pytree.tree_leaves((args, kwargs))
+               if isinstance(t, torch.Tensor))
+    out = op(*_host(args), **{k: _host(v) for k, v in kwargs.items()})
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    back = [torch.ops._c10d_functional.wait_tensor(t).to(dev) for t in outs]
+    return type(out)(back) if isinstance(out, (list, tuple)) else back[0]
+
+
+@contextlib.contextmanager
+def host_staged_collectives():
+    """For the block, each functional collective (`_c10d_functional`) of
+    CUDA tensors runs on host copies (module docstring): a kernel of the
+    op's CUDA dispatch key, so it holds on every thread (the backward
+    pass's too) and inside other ops' handlers (DTensor's argmax gathers
+    from within its own)."""
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*Overriding a previously registered")
+            for name in _FUNCOLS:
+                op = getattr(torch.ops._c10d_functional, name).default
+                lib.impl(name, functools.partial(_staged, op), "CUDA")
+        yield
+    finally:
+        lib._destroy()

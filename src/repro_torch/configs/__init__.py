@@ -2,8 +2,8 @@
 resolves here.
 
 Each module defines CONFIG (exact assigned config) and optionally
-RULE_OVERRIDES (per-arch logical→physical overrides, DESIGN.md §6), kept
-as plain data: the port has no mesh to apply them to.
+RULE_OVERRIDES (per-arch logical→physical overrides, DESIGN.md §6), which
+`launch/mesh.build_rules` applies over the base rules.
 """
 from __future__ import annotations
 

@@ -37,7 +37,8 @@ from repro_torch.core.distributed import (abstract_sharded_ivf,
                                           abstract_sharded_ivf_pq,
                                           make_distributed_search,
                                           make_distributed_search_pq)
-from repro_torch.launch.dryrun import HBM_BW, collective_bw, compute_s, fmt_summary
+from repro_torch.launch.dryrun import (OUT_DIR, HBM_BW, collective_bw, compute_s,
+                                      fake_group, fmt_summary)
 from repro_torch.launch.op_analysis import analyze
 
 N_LOCAL = 1_000_000
@@ -47,23 +48,6 @@ D = 100
 NQ = 1_024
 TOP_T = 40
 FINAL_K = 10
-OUT_DIR = os.path.join("artifacts", "dryrun_torch")
-
-
-def _fake_group(world: int) -> None:
-    """Initialise torch's "fake" backend (collectives that move nothing)
-    as the default group of `world` ranks, this one rank 0."""
-    if dist.is_initialized():
-        raise RuntimeError("ann_dryrun: a default process group already exists; "
-                           "the dry run makes its own fake group and will not "
-                           "reuse another")
-    try:
-        from torch.testing._internal.distributed.fake_pg import FakeStore
-    except ImportError as e:
-        raise RuntimeError("ann_dryrun needs torch's fake process-group backend "
-                           "(torch.testing._internal.distributed.fake_pg), which "
-                           "this torch lacks") from e
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
 
 
 def run(multi_pod: bool, pq: bool = False, *, pmax: int = PMAX,
@@ -78,7 +62,7 @@ def run(multi_pod: bool, pq: bool = False, *, pmax: int = PMAX,
         ivf = abstract_sharded_ivf_pq(1, N_LOCAL, C_LOCAL, pmax, D, D // 4)
     else:
         ivf = abstract_sharded_ivf(1, N_LOCAL, C_LOCAL, pmax, D)
-    _fake_group(n_chips)
+    fake_group(n_chips)
     try:
         maker = make_distributed_search_pq if pq else make_distributed_search
         an = analyze(maker(top_t=TOP_T, final_k=FINAL_K, group=dist.group.WORLD),

@@ -25,6 +25,15 @@ kernels' wrappers report their own work on meta (`kernels/_build.report`).
   `temp_bytes` is the high-water mark of the live bytes, the counterpart
   of XLA's `temp_size_in_bytes`. The call's arguments are not temp.
 
+DTensors (the LM's sharded program, `launch/dryrun.py`): the counter
+declines an op on DTensors (`NotImplemented`), so DTensor's dispatch runs
+it: the ops it runs on the local shards and the collectives it issues
+(`_c10d_functional`) come back to the counter, and are counted at this
+device's shapes — the per-device program, as JAX's HLO is. The ops
+DTensor's sharding propagation runs on fake tensors at global shapes
+(to derive an output's metadata) are not counted. Arguments and
+outputs that are DTensors count their local shards.
+
 Trip counts need no recovery: a Python loop dispatches its body on
 every iteration, so each op is counted as often as it runs, exactly.
 
@@ -42,8 +51,8 @@ from collections import defaultdict
 from typing import Callable, Dict, List
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.analysis.contracts import host_sync
@@ -68,7 +77,8 @@ _C10D_NAMES = {
     "send": "collective-permute", "recv_": "collective-permute",
 }
 _C10D_NAMESPACES = ("c10d", "_c10d_functional")
-_NOT_DATA = {"barrier", "monitored_barrier_", "wait", "wait_tensor"}
+_NOT_DATA = {"barrier", "monitored_barrier_", "wait", "wait_tensor",
+             "_wrap_tensor_autograd"}
 _ALLOCATIONS = {"empty", "empty_like", "empty_strided", "new_empty",
                 "new_empty_strided"}
 _GATHERS = {"index", "gather", "index_select", "embedding", "take"}
@@ -110,13 +120,21 @@ class OpCounter(TorchDispatchMode):
 
     # -------------------------------------------------------------- events
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            # DTensor's own dispatch runs the local ops and its
+            # collectives, each of which comes back here at local shapes
+            return NotImplemented
         kwargs = kwargs or {}
+        if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+            # DTensor's sharding propagation deriving an output's global
+            # shape on fake tensors (once an op signature): no device work
+            return func(*args, **kwargs)
         out = func(*args, **kwargs)
         self.n_ops += 1
-        sync = host_sync(func, args, kwargs, out)
+        ins, outs = _tensors((args, kwargs)), _tensors(out)
+        sync = host_sync(func, args, kwargs, out, ins, outs)
         if sync is not None:
             self.host_syncs.append(sync)
-        ins, outs = _tensors((args, kwargs)), _tensors(out)
         name = func._opname
         if func.namespace in _C10D_NAMESPACES:
             self._collective(func, name, ins, outs)
@@ -206,7 +224,24 @@ class OpCounter(TorchDispatchMode):
 
 
 def _tensors(tree) -> List[torch.Tensor]:
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    """The tensors of a tree of tuples, lists and dicts (an op's arguments
+    and outputs, a call's); a DTensor's is its local shard."""
+    out: List[torch.Tensor] = []
+    _walk(tree, out)
+    return out
+
+
+def _walk(x, out: list) -> None:
+    # a module-level function: a nested recursive one would be a reference
+    # cycle holding `out`, and so the tensors, until the collector runs
+    if isinstance(x, torch.Tensor):
+        out.append(x._local_tensor if isinstance(x, DTensor) else x)
+    elif isinstance(x, (tuple, list)):
+        for y in x:
+            _walk(y, out)
+    elif isinstance(x, dict):
+        for y in x.values():
+            _walk(y, out)
 
 
 def _shape(outs) -> str:

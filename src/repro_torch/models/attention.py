@@ -9,6 +9,15 @@ cache with the positions past the index masked, as JAX does. The one
 departure: decode writes the new position into the cache in place
 (`k_cache[:, index] = k`) where JAX selects it with a one-hot `where` over
 the whole cache (a write GSPMD can partition); the values are the same.
+On a cache sharded over its sequence ("kv_seq"), the write lands in the
+one rank's shard that holds the position, on its local tensor.
+
+Sharding: `shard` constrains q, the expanded K/V and the segment cache
+(heads over "model" in prefill, the cache's sequence over "model") and
+the block's output, where JAX does. On DTensors the blockwise attention
+runs on each rank's (batch, heads) shard (`local_fn`), and decode over a
+sequence-sharded cache merges each rank's partial softmax
+(`_attend_cache`) — what GSPMD makes of JAX's plain softmax there.
 """
 from __future__ import annotations
 
@@ -16,7 +25,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.models.layers import DTYPES, matmul_w, rope
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.launch.mesh import local_range
+from repro_torch.models.layers import DTYPES, local_call, local_fn, matmul_w, rope, shard
 from repro_torch.models.params import ParamDef
 
 NEG_INF = -1e30
@@ -123,25 +136,89 @@ def attention_block(p, x, positions, cfg, mask_mode: str = "causal",
         k = rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = blockwise_attention(q, _expand_kv(k, h), _expand_kv(v, h),
-                                  mask_mode, cfg.n_prefix_embeds)
-        new_cache = KVCache(k, v)
+        q = shard(q, "batch", None, "heads", None)
+        kf = shard(_expand_kv(k, h), "batch", None, "heads", None)
+        vf = shard(_expand_kv(v, h), "batch", None, "heads", None)
+        ax = ("batch", None, "heads", None)
+        out, = local_fn(lambda *a: (blockwise_attention(*a, mask_mode, cfg.n_prefix_embeds),),
+                        (q, kf, vf), (ax, ax, ax), (ax,))
+        new_cache = KVCache(shard(k, "batch", "kv_seq", "kv_heads", None),
+                            shard(v, "batch", "kv_seq", "kv_heads", None))
     else:
         # decode: q (B, 1, h, hd); cache (B, Smax, g, hd)
         kc, vc = cache
-        kc[:, cache_index] = k[:, 0].to(kc.dtype)
-        vc[:, cache_index] = v[:, 0].to(vc.dtype)
-        B = q.shape[0]
-        qg = q.reshape(B, 1, g, h // g, hd)
-        logits = (torch.einsum("bqgmk,bsgk->bgmqs", qg, kc.to(dt))
-                  * hd ** -0.5).float()
-        valid = torch.arange(kc.shape[1], device=x.device) <= cache_index
-        w = torch.softmax(logits.masked_fill(~valid, NEG_INF), dim=-1)
-        out = torch.einsum("bgmqs,bsgk->bqgmk", w.to(dt), vc.to(dt))
-        out = out.reshape(B, 1, h, hd)
+        _write_at(kc, k, cache_index)
+        _write_at(vc, v, cache_index)
+        kc = shard(kc, "batch", "kv_seq", "kv_heads", None)
+        vc = shard(vc, "batch", "kv_seq", "kv_heads", None)
+        if isinstance(kc, DTensor):
+            out = _attend_cache_sharded(q, kc, vc, cache_index)
+        else:
+            out = _attend_cache(q, kc, vc, cache_index)
         new_cache = cache
 
-    return matmul_w(out, p["wo"], n_in=2), new_cache
+    y = matmul_w(out, p["wo"], n_in=2)
+    return shard(y, "batch", None, "act_embed"), new_cache
+
+
+def _attend_cache(q, kc, vc, index: int, lo: int = 0, groups=()):
+    """q (B, 1, h, hd) against the cache's positions ≤ index → (B, 1, h, hd).
+    The cache holds positions lo, lo+1, ...; with `groups` (the process
+    groups that shard its sequence, the local shards given) the softmax
+    is merged across them: the max by an all-reduce, then the
+    denominators and the weighted values by sums (the distributed
+    online-softmax merge GSPMD makes of JAX's plain softmax)."""
+    B, _, h, hd = q.shape
+    g, dt = kc.shape[2], q.dtype
+    qg = q.reshape(B, 1, g, h // g, hd)
+    logits = (torch.einsum("bqgmk,bsgk->bgmqs", qg, kc.to(dt)) * hd ** -0.5).float()
+    valid = torch.arange(lo, lo + kc.shape[1], device=q.device) <= index
+    logits = logits.masked_fill(~valid, NEG_INF)
+    if not groups:
+        w = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bgmqs,bsgk->bqgmk", w.to(dt), vc.to(dt))
+        return out.reshape(B, 1, h, hd)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    for grp in groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=grp)
+    p = torch.exp(logits - m)
+    den = torch.sum(p, dim=-1)                                  # (B,g,m,1)
+    out = torch.einsum("bgmqs,bsgk->bqgmk", p.to(dt), vc.to(dt))
+    for grp in groups:
+        dist.all_reduce(den, group=grp)
+        dist.all_reduce(out, group=grp)
+    out = out / den.permute(0, 3, 1, 2)[..., None].to(dt)
+    return out.reshape(B, 1, h, hd)
+
+
+def _attend_cache_sharded(q, kc, vc, index: int):
+    """`_attend_cache` on DTensors: each rank attends over its own shard of
+    the cache's sequence, merged across the mesh dims that shard it."""
+    mesh, pl = kc.device_mesh, list(kc.placements)
+    seq = [m for m, p in enumerate(pl) if p == Shard(1)]
+    lo = local_range(kc.shape, mesh, pl)[0][1]
+    groups = [mesh.get_group(m) for m in seq]
+    out_pl = [p if m not in seq and p == Shard(0) else Replicate()
+              for m, p in enumerate(pl)]
+    return local_call(lambda a, b, c: _attend_cache(a, b, c, index, lo, groups),
+                      (q, kc, vc), (out_pl, pl, pl), out_pl, mesh)
+
+
+def _write_at(cache, new, index: int):
+    """cache[:, index] = new[:, 0] in place. A DTensor cache is written on
+    its local tensor by the rank whose shard holds `index` (new placed
+    like the cache but whole along the sequence)."""
+    if not isinstance(cache, DTensor):
+        cache[:, index] = new[:, 0].to(cache.dtype)
+        return
+    mesh, pl = cache.device_mesh, cache.placements
+    off, shape = local_range(cache.shape, mesh, pl)
+    whole = [Replicate() if p == Shard(1) else p for p in pl]
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    local = new.redistribute(mesh, whole).to_local()
+    if off[1] <= index < off[1] + shape[1]:
+        cache.to_local()[:, index - off[1]] = local[:, 0].to(cache.dtype)
 
 
 def init_cache_def(cfg, batch: int, max_seq: int):

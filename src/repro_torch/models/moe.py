@@ -20,6 +20,10 @@ router are read by every rank for its own part, so their gradients are
 summed across ranks (`collectives.sum_grads`); the output's is not
 (`collectives.sum_shared`). The sum across ranks adds in another order
 than the dense path's slot order, so the two agree to rounding.
+
+On a mesh (x a DTensor, `rules["expert"]` a mesh dim) the same body runs
+on each rank's local tensors (`layers.local_call`, JAX's `_moe_shardmap`)
+with the mesh's expert dim as its group (`_moe_on_mesh`).
 """
 from __future__ import annotations
 
@@ -28,6 +32,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch import collectives
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.launch.mesh import to_placements
+from repro_torch.models.layers import get_logical_rules, local_call, shard
 from repro_torch.models.params import ParamDef
 from repro_torch.utils import topk_first
 
@@ -125,12 +133,42 @@ def _moe_ep(p, x, cfg, group):
     return collectives.sum_shared(out, group).reshape(B, S, d)
 
 
+def _moe_on_mesh(p, x, cfg, rules):
+    """JAX's `_moe_shardmap` on DTensors: `_moe_ep`'s body on each rank's
+    local tensors, its expert group the mesh's `rules["expert"]` dim. The
+    router is replicated, `wi` / `wo` sharded on their expert dim over it
+    (gathered over any other mesh dim, FSDP's gather), x placed by the
+    "batch" rule; the output is the partial outputs' sum, whole on every
+    expert rank."""
+    mesh = x.device_mesh
+    exp_ax = rules["expert"]
+    if cfg.n_experts % mesh.size(mesh.mesh_dim_names.index(exp_ax)):
+        raise ValueError(f"{cfg.n_experts} experts do not split over mesh dim "
+                         f"{exp_ax!r} of {mesh.shape}")
+    group = mesh.get_group(exp_ax)
+    expert = list(to_placements(mesh, (exp_ax,)))
+    xs = list(to_placements(mesh, (rules.get("batch"), None, None)))
+    rep = [Replicate()] * mesh.ndim
+
+    def body(router, wi, wo, xl):
+        return _moe_ep({"router": router, "wi": wi, "wo": wo}, xl, cfg, group)
+    return local_call(body, (p["router"], p["wi"], p["wo"], x), (rep, expert, expert, xs),
+                      xs, mesh)
+
+
 def moe_mlp(p, x, cfg, ep_group=None):
     """x: (B, S, d) → (B, S, d); expert-parallel over `ep_group` when given
-    (p then holds this rank's experts, see `local_experts`)."""
+    (p then holds this rank's experts, see `local_experts`), or over the
+    mesh's expert dim when x is a DTensor and the rules name one (JAX's
+    shard_map path)."""
     if ep_group is not None:
         return _moe_ep(p, x, cfg, ep_group)
-    return _moe_dense(p, x, cfg)
+    rules = get_logical_rules()
+    if isinstance(x, DTensor) and rules.get("expert") in x.device_mesh.mesh_dim_names:
+        out = _moe_on_mesh(p, x, cfg, rules)
+    else:
+        out = _moe_dense(p, x, cfg)
+    return shard(out, "batch", None, "act_embed")
 
 
 def local_experts(params, cfg, group):

@@ -1,13 +1,15 @@
 """Minimal parameter-definition system (PyTorch port of
 `repro/models/params.py`): each leaf carries a shape, logical axis names
-and an init scale. Two materializations:
+and an init scale. Three materializations:
 
 - `abstract(defs)` → meta-device tensors (shapes and dtypes, no memory)
 - `init(generator, defs)` → real tensors, each leaf from its own generator
+- `pspecs(defs, rules)` → one spec a leaf: a tuple with one mesh-axis
+  entry a dim (JAX's PartitionSpec as a tuple), which `distribute` turns
+  into DTensor placements on a mesh (`launch/mesh.py`)
 
 The init rules are JAX's, not its bits: `zeros`, `ones` and `ssm_a` give
 the same values; `normal` draws from torch's generator with JAX's std.
-The logical axes are kept as data: the port has no PartitionSpecs.
 """
 from __future__ import annotations
 
@@ -100,6 +102,52 @@ def _unflatten(defs, flat: dict, prefix: str = ""):
     if not isinstance(defs, dict):
         return flat[prefix]
     return {k: _unflatten(v, flat, f"{prefix}[{k!r}]") for k, v in defs.items()}
+
+
+def pspecs(defs, rules: dict):
+    """One spec a leaf: each dim's logical axis through `rules`."""
+    return tree_map(lambda d: spec_of(d.axes, rules), defs, _is_def)
+
+
+def spec_of(axes, rules: dict) -> tuple:
+    """Logical axis names (None = replicated) → mesh-axis entries."""
+    return tuple(rules.get(a) if a is not None else None for a in axes)
+
+
+def distribute(tree, specs, mesh):
+    """A tree of tensors → DTensors on `mesh`, leaf by leaf under the spec
+    tree (`pspecs`, `transformer.cache_pspecs`). Every rank passes the
+    same whole tensors and keeps its own shard of each (no collective);
+    a meta tensor gives a meta shard, which is how the dry run places
+    parameters it never allocates. A leaf already a DTensor is
+    redistributed."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import local_range, to_placements
+
+    def place(t, spec):
+        pl = to_placements(mesh, spec)
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, pl)
+        off, shape = local_range(t.shape, mesh, pl)
+        # a copy, so the shard does not keep the whole tensor's storage
+        local = t.detach()[tuple(slice(o, o + n) for o, n in zip(off, shape))].clone(
+            memory_format=torch.contiguous_format)
+        stride = [1] * t.dim()
+        for i in range(t.dim() - 2, -1, -1):
+            stride[i] = stride[i + 1] * t.shape[i + 1]
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=t.shape, stride=tuple(stride))
+    return tree_zip(place, tree, specs)
+
+
+def tree_zip(fn, tree, other):
+    """fn(leaf, other's leaf) over a tree and a spec tree of its shape."""
+    if isinstance(tree, dict):
+        return {k: tree_zip(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_zip(fn, a, b) for a, b in zip(tree, other)))
+    return fn(tree, other)
 
 
 def logical_shapes(defs):

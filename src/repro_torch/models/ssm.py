@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import DTYPES, matmul_w
+from repro_torch.models.layers import DTYPES, local_fn, matmul_w, shard
 from repro_torch.models.params import ParamDef
 
 
@@ -59,6 +59,7 @@ def mamba_block(p, x, cfg, state: Optional[MambaState] = None):
 
     xz = matmul_w(x, p["in_proj"])
     xin, z = xz[:, :, 0, :], xz[:, :, 1, :]                     # (B, S, di)
+    xin = shard(xin, "batch", None, "mlp")
 
     # causal depthwise conv over time
     if state is None:
@@ -81,16 +82,25 @@ def mamba_block(p, x, cfg, state: Optional[MambaState] = None):
          if state is None else state.h.float())
     decay = torch.exp(delta[..., None] * A)                     # (B, S, di, N)
     inp = (delta * xin_c.float())[..., None] * Bm[:, :, None, :]
-    ys = []
-    for t in range(S):
-        h = h * decay[:, t] + inp[:, t]
-        ys.append(torch.einsum("bin,bn->bi", h, Cm[:, t]))
-    y = torch.stack(ys, dim=1).to(dt_)                          # (B, S, di)
+    y, h = local_fn(_mamba_scan, (h, decay, inp, Cm),
+                    (("batch", "mlp", None), ("batch", None, "mlp", None),
+                     ("batch", None, "mlp", None), ("batch", None, None)),
+                    (("batch", None, "mlp"), ("batch", "mlp", None)))
+    y = y.to(dt_)                                               # (B, S, di)
     y = y + xin_c * p["D"].to(dt_)
     y = y * F.silu(z)
     out = matmul_w(y, p["out_proj"])
     cdt = DTYPES[cfg.cache_dtype]
-    return out, MambaState(new_conv.to(cdt), h.to(cdt))
+    return shard(out, "batch", None, "act_embed"), MambaState(new_conv.to(cdt), h.to(cdt))
+
+
+def _mamba_scan(h, decay, inp, Cm):
+    """The selective scan over time → (y (B, S, di), final h)."""
+    ys = []
+    for t in range(decay.shape[1]):
+        h = h * decay[:, t] + inp[:, t]
+        ys.append(torch.einsum("bin,bn->bi", h, Cm[:, t]))
+    return torch.stack(ys, dim=1), h
 
 
 def mamba_state_def(cfg, batch: int):
@@ -202,13 +212,18 @@ def _mlstm_chunkwise(q, k, v, ig, fg, C0, n0, m0, S, L: int = MLSTM_CHUNK):
     return h, (Cp, np_, mp)
 
 
+def _flat(out):
+    hs, (C, n, m) = out
+    return hs, C, n, m
+
+
 def mlstm_block(p, x, cfg, state: Optional[MLSTMState] = None):
     dt_ = x.dtype
     B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.hd
     q = matmul_w(x, p["wq"]) * hd ** -0.5
     k = matmul_w(x, p["wk"]) * hd ** -0.5
-    v = matmul_w(x, p["wv"])
+    v = shard(matmul_w(x, p["wv"]), "batch", None, "heads", "head")
     ig = matmul_w(x, p["wi"]).float()
     fg = matmul_w(x, p["wf"]).float()
     og = torch.sigmoid(matmul_w(x, p["wog"]))
@@ -220,14 +235,17 @@ def mlstm_block(p, x, cfg, state: Optional[MLSTMState] = None):
     else:
         C0, n0, m0 = state.C.float(), state.n.float(), state.m.float()
 
-    if S % MLSTM_CHUNK == 0 and S >= 2 * MLSTM_CHUNK:
-        hs, (CT, nT, mT) = _mlstm_chunkwise(q, k, v, ig, fg, C0, n0, m0, S)
-    else:
-        hs, (CT, nT, mT) = _mlstm_sequential(q, k, v, ig, fg, C0, n0, m0, S)
+    run = (_mlstm_chunkwise if S % MLSTM_CHUNK == 0 and S >= 2 * MLSTM_CHUNK
+           else _mlstm_sequential)
+    qk, v_, g_ = ("batch", None, "heads", None), ("batch", None, "heads", "head"), \
+        ("batch", None, "heads")
+    st = (("batch", "heads", "head", None), ("batch", "heads", None), ("batch", "heads"))
+    hs, CT, nT, mT = local_fn(lambda *a: _flat(run(*a, S)), (q, k, v, ig, fg, C0, n0, m0),
+                              (qk, qk, v_, g_, g_) + st, (v_,) + st)
     h = hs.to(dt_) * og
     out = matmul_w(h, p["wo"], n_in=2)
     cdt = DTYPES[cfg.cache_dtype]
-    return out, MLSTMState(CT.to(cdt), nT.to(cdt), mT.float())
+    return shard(out, "batch", None, "act_embed"), MLSTMState(CT.to(cdt), nT.to(cdt), mT.float())
 
 
 def mlstm_state_def(cfg, batch: int):
@@ -275,6 +293,7 @@ def slstm_block(p, x, cfg, state: Optional[SLSTMState] = None):
     B, S, d = x.shape
     He, bs = _slstm_dims(cfg)
     zx = matmul_w(x, p["wx"]).float()                           # (B,S,4,He,bs)
+    zx = shard(zx, "batch", None, None, "shead", None)
     R = p["r"].float()
     bias = p["b"].float()
 
@@ -285,8 +304,21 @@ def slstm_block(p, x, cfg, state: Optional[SLSTMState] = None):
     else:
         c, n, h, m = (s.float() for s in state)
 
+    sh = ("batch", "shead", None)
+    hseq, c, n, h, m = local_fn(
+        _slstm_scan, (zx, R, bias, c, n, h, m),
+        (("batch", None, None, "shead", None), (None, "shead", None, None),
+         (None, "shead", None), sh, sh, sh, sh),
+        (("batch", None, "shead", None), sh, sh, sh, sh))
+    out = matmul_w(hseq.to(dt_), p["wo"], n_in=2)
+    return shard(out, "batch", None, "act_embed"), SLSTMState(c, n, h, m)
+
+
+def _slstm_scan(zx, R, bias, c, n, h, m):
+    """The sLSTM recurrence over time → (h over time (B, S, He, bs), final
+    c, n, h, m)."""
     hs = []
-    for t in range(S):
+    for t in range(zx.shape[1]):
         rec = torch.einsum("bhu,ghuv->bghv", h, R)              # (B,4,He,bs)
         pre = zx[:, t] + rec + bias[None]
         it, ft, zt_, ot = pre[:, 0], pre[:, 1], pre[:, 2], pre[:, 3]
@@ -299,9 +331,7 @@ def slstm_block(p, x, cfg, state: Optional[SLSTMState] = None):
         h = torch.sigmoid(ot) * c / torch.clamp(n, min=1.0)
         m = m_new
         hs.append(h)
-    hseq = torch.stack(hs, dim=1).to(dt_)                       # (B, S, He, bs)
-    out = matmul_w(hseq, p["wo"], n_in=2)
-    return out, SLSTMState(c, n, h, m)
+    return torch.stack(hs, dim=1), c, n, h, m
 
 
 def slstm_state_def(cfg, batch: int):

@@ -23,19 +23,23 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import params as prm
-from repro_torch.models.attention import attention_block, attn_def, init_cache_def
+from repro_torch.models.attention import (KVCache, attention_block, attn_def,
+                                          init_cache_def)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (DTYPES, embed, embed_def, head_def, matmul_w,
-                                       mlp, mlp_def, rmsnorm, rmsnorm_def,
-                                       softmax_xent)
+                                       local_fn, mlp, mlp_def, rmsnorm, rmsnorm_def,
+                                       shard, softmax_xent)
 from repro_torch.models.moe import moe_def, moe_mlp
-from repro_torch.models.ssm import (mamba_block, mamba_def, mamba_state_def,
-                                    mlstm_block, mlstm_def, mlstm_state_def,
-                                    slstm_block, slstm_def, slstm_state_def)
+from repro_torch.models.ssm import (MambaState, MLSTMState, SLSTMState, mamba_block,
+                                    mamba_def, mamba_state_def, mlstm_block, mlstm_def,
+                                    mlstm_state_def, slstm_block, slstm_def,
+                                    slstm_state_def)
 from repro_torch.utils import Device, resolve_device
 
 MIXER_DEFS = {"attn": attn_def, "mamba": mamba_def,
@@ -90,6 +94,10 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
                     device=device)
 
 
+def param_pspecs(cfg: ModelConfig, rules: dict):
+    return prm.pspecs(model_defs(cfg), rules)
+
+
 # ----------------------------------------------------------------- caches
 
 def cache_defs(cfg: ModelConfig, batch: int, max_seq: int):
@@ -101,6 +109,29 @@ def cache_defs(cfg: ModelConfig, batch: int, max_seq: int):
         out[f"pos{i}_{kind}"] = prm.tree_map(
             lambda s: torch.empty((cfg.n_groups,) + tuple(s.shape), dtype=s.dtype,
                                   device="meta"), st)
+    return out
+
+
+def cache_pspecs(cfg: ModelConfig, batch: int, max_seq: int, rules: dict):
+    """Specs of the decode cache (KV seq-sharded; states sharded on their
+    wide dim), JAX's leaf for leaf."""
+    r = rules.get
+    out = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind == "attn":
+            kv = (None, r("batch"), r("kv_seq"), None, None)
+            out[f"pos{i}_{kind}"] = KVCache(kv, kv)
+        elif kind == "mamba":
+            out[f"pos{i}_{kind}"] = MambaState((None, r("batch"), None, r("mlp")),
+                                               (None, r("batch"), r("mlp"), None))
+        elif kind == "mlstm":
+            out[f"pos{i}_{kind}"] = MLSTMState(
+                (None, r("batch"), r("heads"), r("head"), None),
+                (None, r("batch"), r("heads"), None),
+                (None, r("batch"), r("heads")))
+        else:  # slstm — (head × block) sub-heads sharded over "shead"
+            s = (None, r("batch"), r("shead"), None)
+            out[f"pos{i}_{kind}"] = SLSTMState(s, s, s, s)
     return out
 
 
@@ -167,6 +198,7 @@ def _apply_group(gp, x, positions, cfg, mask_mode, states, cache_index,
                 x = x + moe_mlp(gp[f"pos{i}_moe"], h2, cfg, ep_group)
             else:
                 x = x + mlp(gp[f"pos{i}_mlp"], h2, cfg)
+        x = shard(x, "batch", None, "act_embed")
     return x, new_states
 
 
@@ -180,10 +212,12 @@ def _embed_inputs(params, inputs, cfg: ModelConfig):
     """Returns (x (B,S,d), mask_mode)."""
     dt = DTYPES[cfg.compute_dtype]
     if cfg.frontend == "audio":
-        return matmul_w(inputs["frames"].to(dt), params["in_proj"]["w"]), "full"
+        x = matmul_w(inputs["frames"].to(dt), params["in_proj"]["w"])
+        return shard(x, "batch", None, "act_embed"), "full"
     tok_emb = embed(params["embed"], inputs["tokens"], cfg)
     if cfg.frontend == "vision":
-        return torch.cat([inputs["patches"].to(dt), tok_emb], dim=1), "prefix"
+        x = torch.cat([inputs["patches"].to(dt), tok_emb], dim=1)
+        return shard(x, "batch", None, "act_embed"), "prefix"
     return tok_emb, "causal" if cfg.causal else "full"
 
 
@@ -225,7 +259,7 @@ def logits_from_hidden(params, x, cfg: ModelConfig):
     logits = matmul_w(x, params["head"]["w"])
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits
+    return shard(logits, "batch", None, "vocab")
 
 
 def loss_fn(params, batch, cfg: ModelConfig, ep_group=None):
@@ -234,7 +268,11 @@ def loss_fn(params, batch, cfg: ModelConfig, ep_group=None):
     logits = logits_from_hidden(params, x, cfg)
     if cfg.frontend == "vision":                # loss over text positions only
         logits = logits[:, cfg.n_prefix_embeds:, :]
-    return torch.mean(softmax_xent(logits, batch["labels"], cfg.vocab_size))
+    loss = torch.mean(softmax_xent(logits, batch["labels"], cfg.vocab_size))
+    # on a mesh, the whole scalar on every rank (JAX's is replicated): the
+    # backward pass then starts from a plain 1.0, whatever the partial
+    # placement the mean left (a partial scalar's seed is version-dependent)
+    return loss.full_tensor() if isinstance(loss, DTensor) else loss
 
 
 # ------------------------------------------------------------------ serve
@@ -253,14 +291,16 @@ def prefill(params, inputs, cfg: ModelConfig, max_seq: int):
     for key in states[0]:
         per_group = [s[key] for s in states]
         if key.endswith("_attn"):
-            k0 = per_group[0].k
-            B, S, g, hd = k0.shape
-            buf = [torch.zeros((cfg.n_groups, B, max_seq, g, hd), dtype=cdt,
-                               device=k0.device) for _ in range(2)]
-            for gi, kv in enumerate(per_group):
-                buf[0][gi, :, :S] = kv.k
-                buf[1][gi, :, :S] = kv.v
-            caches[key] = type(per_group[0])(*buf)
+            pad = (0, 0, 0, 0, 0, max_seq - per_group[0].k.shape[1])
+
+            def pad_stack(*ts):
+                return (torch.stack([F.pad(t.to(cdt), pad) for t in ts]),)
+            # on DTensors each rank pads its own (batch, kv_heads) shard
+            ax = ("batch", None, "kv_heads", None)
+            caches[key] = KVCache(*(
+                shard(local_fn(pad_stack, [kv[j] for kv in per_group], [ax] * len(per_group),
+                               [(None,) + ax])[0],
+                      None, "batch", "kv_seq", "kv_heads", None) for j in range(2)))
         else:
             caches[key] = _stack(per_group)
     return logits, caches
@@ -283,9 +323,17 @@ def decode_step(params, token, caches, index: int, cfg: ModelConfig):
         for key, new in new_st.items():
             for view, leaf in zip(st[key], new):
                 if leaf is not view:
-                    view.copy_(leaf)
+                    view.copy_(_placed_like(leaf, view))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_from_hidden(params, x, cfg), caches
+
+
+def _placed_like(t, ref):
+    """t redistributed to ref's placements where both are DTensors (an
+    in-place copy cannot move ref's own)."""
+    if isinstance(ref, DTensor) and isinstance(t, DTensor) and t.placements != ref.placements:
+        return t.redistribute(ref.device_mesh, ref.placements)
+    return t
 
 
 # ----------------------------------------------------------------- module

@@ -10,7 +10,9 @@ reported before the clip. Trees are nested dicts of tensors (the model's
 parameter layout). `update` works in place on params, grads and the
 state's m and v, the way the JAX step donates them, and walks each leaf
 in chunks so the temporaries stay small at full width; every operation
-is elementwise, so the chunks change no bit.
+is elementwise, so the chunks change no bit. DTensor leaves (a sharded
+model, `models/params.distribute`) are updated shard by shard, each rank
+its own; the norm sums each shard's squares across the mesh.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models import params as prm
 
@@ -59,8 +62,21 @@ def warmup_cosine(base_lr: float, warmup: int, total: int,
 
 
 def _chunks(t: torch.Tensor):
+    """A leaf's elements CHUNK at a time; a DTensor's are its own shard's
+    (chunks of its global view would not be this rank's memory)."""
+    if isinstance(t, DTensor):
+        t = t.to_local()
     flat = t.view(-1)
     return [flat[i:i + CHUNK] for i in range(0, flat.numel(), CHUNK)]
+
+
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    sq = sum(torch.sum(torch.square(c.float())) for c in _chunks(x))
+    if isinstance(x, DTensor):
+        # one shard's sum: summed over the mesh dims that shard x
+        pl = [Partial() if isinstance(p, Shard) else Replicate() for p in x.placements]
+        sq = DTensor.from_local(sq, x.device_mesh, pl, run_check=False).full_tensor()
+    return sq
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -68,8 +84,7 @@ def global_norm(tree) -> torch.Tensor:
     (sorted) order."""
     total = 0
     for _, x in prm.leaf_paths(tree):
-        sq = sum(torch.sum(torch.square(c.float())) for c in _chunks(x))
-        total = total + sq
+        total = total + _sum_sq(x)
     return torch.sqrt(total)
 
 
@@ -80,9 +95,10 @@ def update(grads, state: AdamWState, params, lr_fn, *, b1=0.9, b2=0.95,
     gn = global_norm(grads)
     scale = torch.clamp(_scalar(clip_norm, gn) / torch.clamp(gn, min=1e-12), max=1.0)
     step = state.step + 1
-    bc1 = 1 - torch.pow(_scalar(b1, gn), step.to(torch.float32))
-    bc2 = 1 - torch.pow(_scalar(b2, gn), step.to(torch.float32))
-    lr = lr_fn(state.step)
+    now = step.to_local() if isinstance(step, DTensor) else step   # replicated
+    bc1 = 1 - torch.pow(_scalar(b1, gn), now.to(torch.float32))
+    bc2 = 1 - torch.pow(_scalar(b2, gn), now.to(torch.float32))
+    lr = lr_fn(now - 1)
     g_leaves = dict(prm.leaf_paths(grads))
     m_leaves = dict(prm.leaf_paths(state.m))
     v_leaves = dict(prm.leaf_paths(state.v))

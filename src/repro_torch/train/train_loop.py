@@ -4,7 +4,12 @@
 - Gradient accumulation: the global batch is split into `accum`
   micro-batches, run in order; autograd adds each one's gradient into the
   step's gradient tree, which is then divided by `accum` (JAX sums from
-  zeros in the same order, then divides).
+  zeros in the same order, then divides). On a mesh (the parameters and
+  the batch DTensors, `models/params.distribute`) micro-batch i is the
+  i-th share of every data rank's own rows, so no row moves; JAX's is
+  the i-th run of contiguous global rows, which GSPMD reshards. Every
+  micro-batch has the same size, so the loss and gradients are the same
+  sums in another order.
 - Memory: the gradient tree is allocated once a step, and each group
   slice of a stacked leaf is its own autograd leaf whose `.grad` is that
   slice of the tree, so a group's gradient is added in place as soon as
@@ -22,12 +27,17 @@ JAX's `PRNGKey` stream.
 """
 from __future__ import annotations
 
+import contextlib
 import signal
 import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.launch.mesh import device_of, set_mesh
+from repro_torch.models.layers import get_logical_rules
 from repro_torch.models import params as prm
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -58,6 +68,21 @@ def _grad_leaves(params: dict, grads: dict, n_groups: int) -> dict:
     return out
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _micro(v: torch.Tensor, i: int, accum: int) -> torch.Tensor:
+    """Micro-batch i of accum: rows [i·B/accum, (i+1)·B/accum) of v, or of
+    each rank's rows of a DTensor batch (which stay where they are)."""
+    loc = _local(v)
+    n = loc.shape[0] // accum
+    part = loc[i * n:(i + 1) * n]
+    if isinstance(v, DTensor):
+        return DTensor.from_local(part, v.device_mesh, v.placements, run_check=False)
+    return part
+
+
 def make_train_step(cfg: ModelConfig, lr_fn, accum: int = 1,
                     weight_decay: float = 0.1, clip_norm: float = 1.0):
     """Returns fn(params, opt_state, batch) → (params, state, metrics), the
@@ -72,13 +97,12 @@ def make_train_step(cfg: ModelConfig, lr_fn, accum: int = 1,
             loss = loss.detach()
         else:
             first = next(iter(batch.values()))
-            B = first.shape[0]
+            B = _local(first).shape[0]
             if B % accum:
                 raise ValueError(f"batch {B} does not split into {accum} micro-batches")
-            mb = B // accum
             loss = torch.zeros((), dtype=torch.float32, device=first.device)
             for i in range(accum):
-                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                micro = {k: _micro(v, i, accum) for k, v in batch.items()}
                 lm = T.loss_fn(leaves, micro, cfg)
                 lm.backward()
                 loss = loss + lm.detach()
@@ -120,12 +144,18 @@ class Watchdog:
 def train(cfg: ModelConfig, pipeline, steps: int, lr: float = 3e-4,
           accum: int = 1, ckpt_manager=None, ckpt_every: int = 100,
           log_every: int = 10, params=None, seed: int = 0,
-          on_log: Optional[Callable] = None, device: Device = None):
+          on_log: Optional[Callable] = None, device: Device = None, mesh=None):
     """End-to-end training loop (used by launch/train.py) on `device`: CUDA
     unless the caller asks for the CPU. Resumes from `ckpt_manager`'s
     latest checkpoint when it has one; batches come from
-    `pipeline.batch_at(step)` and are moved to the device."""
-    dev = resolve_device(device)
+    `pipeline.batch_at(step)` and are moved to the device.
+
+    With `mesh` (a `DeviceMesh` over every rank, the logical rules set:
+    `launch/train.py --mesh`), the parameters, optimizer state and each
+    batch are placed on it by the rules (FSDP + TP), every rank runs the
+    same loop, and checkpoints are gathered whole and written by rank 0
+    (JAX's format holds whole arrays)."""
+    dev = resolve_device(device) if mesh is None else device_of(mesh)
     lr_fn = opt.warmup_cosine(lr, warmup=max(steps // 20, 10), total=steps)
     step_fn = make_train_step(cfg, lr_fn, accum=accum)
 
@@ -137,6 +167,16 @@ def train(cfg: ModelConfig, pipeline, steps: int, lr: float = 3e-4,
     if params is None:
         params = T.init_params(torch.Generator().manual_seed(seed), cfg, device=dev)
     params = prm.tree_map(lambda a: a.to(dev), params)
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        rules = get_logical_rules()
+        pspecs = T.param_pspecs(cfg, rules)
+        params = prm.distribute(params, pspecs, mesh)
+        if opt_state is not None:
+            opt_state = opt.AdamWState(opt_state.step.to(dev),
+                                       prm.distribute(opt_state.m, pspecs, mesh),
+                                       prm.distribute(opt_state.v, pspecs, mesh))
+        ctx = set_mesh(mesh)
     if opt_state is None:
         opt_state = opt.init(params)
 
@@ -151,27 +191,48 @@ def train(cfg: ModelConfig, pipeline, steps: int, lr: float = 3e-4,
 
     wd = Watchdog()
     losses = []
-    for step in range(start_step, steps):
-        t0 = time.time()
-        batch = {k: v.to(dev) for k, v in pipeline.batch_at(step).items()}
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
-        dt = time.time() - t0
-        wd.observe(dt, step)
-        loss = float(metrics["loss"])
-        losses.append(loss)
-        if step % log_every == 0 or step == steps - 1:
-            msg = (f"step {step:5d} loss {loss:.4f} "
-                   f"gnorm {float(metrics['grad_norm']):.3f} "
-                   f"lr {float(metrics['lr']):.2e} {dt:.2f}s")
-            print(msg)
-            if on_log:
-                on_log(step, metrics)
-        should_ckpt = (ckpt_manager is not None
-                       and (step % ckpt_every == 0 or step == steps - 1
-                            or preempted["flag"]))
-        if should_ckpt:
-            ckpt_manager.save_train_state(step + 1, params, opt_state)
-        if preempted["flag"]:
-            print(f"[train] preemption signal → saved at step {step}, exiting")
-            break
+    with ctx:
+        for step in range(start_step, steps):
+            t0 = time.time()
+            batch = {k: v.to(dev) for k, v in pipeline.batch_at(step).items()}
+            if mesh is not None:
+                b = get_logical_rules().get("batch")
+                batch = prm.distribute(batch, {k: (b,) + (None,) * (v.dim() - 1)
+                                               for k, v in batch.items()}, mesh)
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            dt = time.time() - t0
+            wd.observe(dt, step)
+            loss = float(_whole(metrics["loss"]))
+            losses.append(loss)
+            if step % log_every == 0 or step == steps - 1:
+                msg = (f"step {step:5d} loss {loss:.4f} "
+                       f"gnorm {float(metrics['grad_norm']):.3f} "
+                       f"lr {float(metrics['lr']):.2e} {dt:.2f}s")
+                print(msg)
+                if on_log:
+                    on_log(step, metrics)
+            should_ckpt = (ckpt_manager is not None
+                           and (step % ckpt_every == 0 or step == steps - 1
+                                or preempted["flag"]))
+            if should_ckpt:
+                _save(ckpt_manager, step + 1, params, opt_state, mesh)
+            if preempted["flag"]:
+                print(f"[train] preemption signal → saved at step {step}, exiting")
+                break
     return params, opt_state, losses
+
+
+def _whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _save(mgr, step: int, params, opt_state, mesh) -> None:
+    if mesh is None:
+        mgr.save_train_state(step, params, opt_state)
+        return
+    params = prm.tree_map(_whole, params)         # a collective on every rank
+    opt_state = opt.AdamWState(_whole(opt_state.step), prm.tree_map(_whole, opt_state.m),
+                               prm.tree_map(_whole, opt_state.v))
+    if dist.get_rank() == 0:
+        mgr.save_train_state(step, params, opt_state)
+    dist.barrier()

@@ -17,7 +17,9 @@ analyzer's contracts are traced on the card over the kernels
 vectors, search tiles under torch's sync check); and LM training: a
 train step of every smoke config on the card against the CPU,
 accumulation, resume bit for bit, the compressed all-reduce of CUDA
-tensors over gloo, and no fallback to the CPU. This file imports
+tensors over gloo, and no fallback to the CPU; the sharded LM: the op
+counter on CUDA DTensors and sharded serving on a one-rank gloo mesh
+against the plain path. This file imports
 nothing of JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -1406,3 +1408,78 @@ def test_train_asked_for_cuda_without_a_card_raises(cuda, monkeypatch):
         train(cfg, for_model(cfg, 16, 2), steps=2, device="cuda",
               on_log=lambda s, m: steps.append(s), log_every=1)
     assert steps == []
+
+
+# ----------------------------------------------------------- sharded LM (PR 25)
+
+def test_op_counter_counts_a_dtensors_local_work_on_card(cuda):
+    """This torch's DTensor dispatch under the op analysis: a
+    [Shard(0), Replicate()] × [Shard(0), Shard(1)] product of CUDA tensors
+    on a fake (2, 2) group counts one rank's FLOPs (the global / 4) and
+    DTensor's one all-gather of w's "data" shards (launch/op_analysis.py)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.op_analysis import analyze
+    fake_group(4)
+    try:
+        mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+        x = DTensor.from_local(torch.ones((4, 64, 32), device=cuda), mesh,
+                               [Shard(0), Replicate()], run_check=False)
+        w = DTensor.from_local(torch.ones((16, 24), device=cuda), mesh,
+                               [Shard(0), Shard(1)], run_check=False)
+        r = analyze(lambda a, b: a @ b, x, w)
+    finally:
+        dist.destroy_process_group()
+    assert r["flops"] == 2 * 8 * 64 * 32 * 48 / 4
+    assert r["collectives"]["all-gather"] == {"count": 1.0, "bytes": 32 * 24 * 4}
+    assert r["host_syncs"] == []
+
+
+def test_sharded_serve_on_a_one_rank_mesh_on_card(cuda, tmp_path):
+    """granite's smoke config (f32) over a (1, 1) mesh of one gloo rank on
+    the card, its parameters and caches DTensors under the dry run's rules:
+    prefill logits and three decode steps within 1e-5 of the plain path,
+    ids equal, everything on the card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import build_rules, set_mesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.layers import set_logical_rules
+    from repro_torch.models.params import distribute
+    cfg = get_config("granite-3-2b").smoke_config().replace(compute_dtype="float32")
+    params = TT.init_params(torch.Generator().manual_seed(0), cfg, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(1))
+    tokens = tokens.to(cuda)
+
+    def run(p, wrap):
+        logits, caches = TT.prefill(p, {"tokens": wrap(tokens)}, cfg, 24)
+        out, tok = [logits], torch.argmax(logits[:, -1], -1)[:, None]
+        for i in range(3):
+            logits, caches = TT.decode_step(p, tok, caches, 16 + i, cfg)
+            out.append(logits)
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+        return [o.full_tensor() if isinstance(o, DTensor) else o for o in out]
+
+    with torch.no_grad():
+        want = run(params, lambda t: t)
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                                world_size=1)
+        rules = build_rules({}, batch_size=2, dp_degree=1)
+        set_logical_rules(rules)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            with set_mesh(mesh):
+                dp = distribute(params, TT.param_pspecs(cfg, rules), mesh)
+                assert isinstance(dp["head"]["w"], DTensor)
+                got = run(dp, lambda t: distribute({"t": t}, {"t": ("data", None)}, mesh)["t"])
+        finally:
+            set_logical_rules({})
+            dist.destroy_process_group()
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert float((g - w).abs().max() / w.abs().max()) < 1e-5
+        assert torch.equal(g.argmax(-1), w.argmax(-1))
