@@ -218,7 +218,10 @@ just after, and fails if one of its kernels was never launched:
      route and the dense scorer are timed the same way (device time
      alone), the route also at a second shape that stands for c = 32,768
      at the router's defaults (seeded tables, S = 181, t_route = 23,
-     cmax = 256), with its wrapper's and the whole router call's host
+     cmax = 256) and at a third, phase 16's shard router ("shard_router":
+     shard 0's stacked tables on one 64-query tile, its S, cmax and the
+     t_route its search gives it, with phase 16's launches of the route),
+     with its wrapper's and the whole router call's host
      microseconds per call (host clock over many calls, no synchronisation
      between them); with --parent DIR (a checkout of the parent commit,
      unpacked beside this one) the parent's route and dense kernels are
@@ -232,7 +235,9 @@ just after, and fails if one of its kernels was never launched:
      of phases 9-10 timed the same way at the build's shapes, each beside
      its calls and its bound (bytes / 3.35 TB/s against f32 operations /
      67 TFLOP/s), on a "plain work" line; the probe scorer's record also
-     gives it at phase 16's m = 25 ("m25", one 64-query tile of shard 0).
+     gives it at phase 16's m = 25 ("m25", one 64-query tile of shard 0,
+     queued behind a longer kernel over 10 launches and over 50: timed back
+     to back, the tile's time followed the host).
      "launches" of a kernel sum every driven path above but the filtered
      one of phase 5, and phase 21's;
  19. the LM serving path, after phases 1-18's tensors are freed,
@@ -3312,8 +3317,9 @@ def ann_phases(args):
     def shard_phase(tmp):
         """Build four 1,000,000-vector shards, search them every way against
         exact search and the plain kernels, degrade one, save and reload
-        the envelope, serve it from two gloo ranks → (numbers, one m = 25
-        probe-scorer tile's arguments)."""
+        the envelope, serve it from two gloo ranks → (numbers, (one m = 25
+        probe-scorer tile's arguments, shard 0's tree-route arguments on
+        that tile))."""
         out = {}
         torch.cuda.reset_peak_memory_stats()
         out["resident_before_bytes"] = torch.cuda.memory_allocated()
@@ -3475,12 +3481,19 @@ def ann_phases(args):
         psc, parts = FlatRouter(ivq.centroids[0]).route(Qt, TOP_T)
         probe = (pq_lut(PQCodebook(ivq.pq_centers[0]), Qt), ivq.part_codes[0].clone(),
                  ivq.extent[0].clone(), parts, psc)
+        # and shard 0's router as the tree searches above route a tile: the
+        # stack's (S, cmax) and the t_route the search gives it
+        r0 = dist_mod._local_router(ivq.centroids[0], (srt.super_centroids[0],
+                                                       srt.children[0],
+                                                       srt.child_centroids[0]), None)
+        route = (Qt.clone(), r0.super_centroids.clone(), r0.child_centroids.clone(),
+                 r0.children.clone(), r0.eff_t_route)
         out["phase_s"] = time.perf_counter() - t_phase
         out["peak_bytes"] = torch.cuda.max_memory_allocated()
-        return out, probe, (ivq, iv, Qt.clone())
+        return out, (probe, route), (ivq, iv, Qt.clone())
 
     with tempfile.TemporaryDirectory() as tmp:
-        (ssum, probe25, shards), slaunch = drive(
+        (ssum, (probe25, route16), shards), slaunch = drive(
             wrappers, ("pq_score_probes", "tree_route", "vq_assign", "soar_assign",
                        "lloyd_sweep"), lambda: shard_phase(tmp))
     path_launches.update(slaunch)
@@ -3605,9 +3618,10 @@ def ann_phases(args):
     assert torch.allclose(g25[f25], w25[f25], rtol=1e-5, atol=1e-5), "pq_score_probes m=25"
     cb25 = int(probe25[2][probe25[3]].sum()) * SH_M
     b25 = bound(probe_bytes(probe25, g25, cb25), cb25)
-    ms25 = time_ms(lambda: pq_score_probes(*probe25))
+    ms25 = device_ms(lambda: pq_score_probes(*probe25), busy)
     m25 = {"shape": [probe25[0].shape[0], TOP_T, probe25[1].shape[1], SH_M], "ms": ms25,
            "plain_ms": time_ms(lambda: ref.pq_score_probes_ref(*probe25), 3),
+           "ms_reps50": device_ms(lambda: pq_score_probes(*probe25), busy, 50),
            "bound_ms": b25[0], "bound_by": b25[1], "share": b25[0] / ms25,
            "max_abs_err": float((g25[f25] - w25[f25]).abs().max()),
            "probed_code_bytes": cb25}
@@ -3767,6 +3781,18 @@ def ann_phases(args):
     assert torch.allclose(g2s[fin2], w2s[fin2], rtol=1e-4, atol=1e-4), "tree_route c=32,768"
     ms2, par2, host2 = route_times(Q2, tabs2, T2)
     b2 = bound(*route_bytes_ops(BQ, S2, CM2, D, T2))
+    # the third shape: phase 16's shard router, shard 0's tables on one tile
+    Q3, *tabs3, T3 = route16
+    S3, CM3 = tabs3[2].shape
+    g3s, g3i = tree_route(Q3, *tabs3, T3)
+    w3s, w3i = ref.tree_route_ref(Q3, *tabs3, T3)
+    assert torch.equal(g3i, w3i), "tree_route ids at phase 16's shard router"
+    fin3 = torch.isfinite(w3s)
+    assert torch.equal(fin3, torch.isfinite(g3s)), "tree_route masks at phase 16's router"
+    assert torch.allclose(g3s[fin3], w3s[fin3], rtol=1e-4, atol=1e-4), \
+        "tree_route at phase 16's router"
+    ms3, par3, host3 = route_times(Q3, tabs3, T3)
+    b3 = bound(*route_bytes_ops(Q3.shape[0], S3, CM3, Q3.shape[1], T3))
     S, cm = rt.n_super, rt.cmax
     ms1, par1, host1 = route_times(Qb, tables, tr)
     record("tree_route", "src/repro_torch/csrc/tree_route.cu",
@@ -3779,7 +3805,13 @@ def ann_phases(args):
            c32k={"shape": [BQ, S2, CM2, D, T2], "ms": ms2, "parent_ms": par2,
                  "host_us": host2, "bound_ms": b2[0], "bound_by": b2[1],
                  "share": b2[0] / ms2,
-                 "max_abs_err": float((g2s[fin2] - w2s[fin2]).abs().max())})
+                 "max_abs_err": float((g2s[fin2] - w2s[fin2]).abs().max())},
+           shard_router={"shape": [Q3.shape[0], S3, CM3, Q3.shape[1], T3],
+                         "phase16_launches": ssum["launches"]["tree_route"],
+                         "ms": ms3, "parent_ms": par3, "host_us": host3,
+                         "bound_ms": b3[0], "bound_by": b3[1], "share": b3[0] / ms3,
+                         "max_abs_err": float((g3s[fin3] - w3s[fin3]).abs().max())})
+    del g3s, g3i, w3s, w3i
 
     # the build's plain-torch work at its shapes: one shard for the spill
     # columns, the training sample for the anisotropic steps, all rows for

@@ -27,7 +27,7 @@ from typing import Iterator, Optional
 
 import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 
 @contextlib.contextmanager
@@ -80,8 +80,11 @@ def local_range(shape, mesh: DeviceMesh, placements) -> tuple:
     """This rank's (offsets, sizes) of a tensor of `shape` under
     `placements` (`Shard`'s `torch.chunk` rule, mesh dims that shard one
     tensor dim nesting major to minor), in plain Python: no tensor op, so
-    nothing of it reaches a dispatch mode."""
+    nothing of it reaches a dispatch mode. A rank outside the mesh holds
+    nothing: zero offsets and sizes."""
     coord = mesh.get_coordinate()
+    if coord is None:
+        return (0,) * len(shape), (0,) * len(shape)
     off, size = [0] * len(shape), list(shape)
     for m, p in enumerate(placements):
         if isinstance(p, Shard):
@@ -97,28 +100,38 @@ def _device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def make_production_mesh(*, multi_pod: bool = False,
-                         device_type: Optional[str] = None) -> DeviceMesh:
-    """(16, 16) ("data", "model"), or (2, 16, 16) with "pod", over the
-    default process group, which must hold exactly 256 or 512 ranks
-    (JAX asserts its device count)."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    n = math.prod(shape)
+def _first_ranks(shape, axes, device_type: Optional[str]) -> DeviceMesh:
+    """A mesh of `shape` over ranks 0 .. prod(shape) − 1 of the default
+    process group, row-major, as JAX takes its first devices. Every rank
+    of the group builds it (it makes subgroups, a collective); a rank past
+    the mesh gets `get_coordinate() is None` and empty local shards."""
+    shape, n = tuple(shape), math.prod(shape)
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if world != n:
+    if world < n:
         raise RuntimeError(f"need {n} devices for mesh {shape}; have {world} — "
                            f"start {n} ranks (torchrun --nproc-per-node ... "
                            f"--nnodes ...) before building the mesh")
-    return init_device_mesh(device_type or _device_type(), shape, mesh_dim_names=axes)
+    return DeviceMesh(device_type or _device_type(), torch.arange(n).view(shape),
+                      mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Optional[str] = None) -> DeviceMesh:
+    """(16, 16) ("data", "model"), or (2, 16, 16) with "pod", over the
+    first 256 or 512 ranks of the default process group in row-major
+    order, as JAX's takes its first 256 or 512 devices. Fewer ranks than
+    that are refused (JAX asserts its device count); ranks past them sit
+    outside the mesh."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _first_ranks(shape, axes, device_type)
 
 
 def make_test_mesh(shape=(2, 4), axes=("data", "model"),
                    device_type: Optional[str] = None) -> DeviceMesh:
-    """Small mesh over the default process group (its world size must be
-    the mesh's size)."""
-    return init_device_mesh(device_type or _device_type(), tuple(shape),
-                            mesh_dim_names=tuple(axes))
+    """Small mesh over the first prod(shape) ranks of the default process
+    group, as JAX's takes its first prod(shape) devices."""
+    return _first_ranks(shape, axes, device_type)
 
 
 # --------------------------------------------------------------------------

@@ -11,10 +11,11 @@
     python -m repro_torch.launch.train --arch granite-3-2b --device cpu --steps 50
 
   --mesh none|single|multi   none: one device; single / multi: the (16, 16)
-                      or (2, 16, 16) production mesh over the 256 or 512
-                      ranks torchrun started (NCCL on cuda, gloo on cpu),
-                      parameters FSDP over "data" and TP over "model" by
-                      the config's logical rules
+                      or (2, 16, 16) production mesh over the first 256 or
+                      512 ranks torchrun started (NCCL on cuda, gloo on
+                      cpu), parameters FSDP over "data" and TP over "model"
+                      by the config's logical rules; ranks past the mesh
+                      sit out (exit 0, no training, no checkpoint)
   --no-fsdp           disable ZeRO-style param sharding over "data"
   --accum N           gradient-accumulation micro-batching
   --ckpt-dir/--ckpt-every   checkpoints under <ckpt-dir>/<config name>; a
@@ -48,6 +49,18 @@ def mesh_rules(arch: str, multi_pod: bool, batch: int, no_fsdp: bool) -> dict:
     return rules
 
 
+def sits_out(mesh) -> bool:
+    """True on a rank past `mesh`, which holds the process group's first
+    ranks: it prints so and leaves the group. Every rank builds the mesh
+    first (a collective)."""
+    if mesh.get_coordinate() is not None:
+        return False
+    print(f"rank {dist.get_rank()} of {dist.get_world_size()} sits out: the mesh "
+          f"{tuple(mesh.mesh.shape)} holds ranks 0-{mesh.mesh.numel() - 1}", flush=True)
+    dist.destroy_process_group()
+    return True
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="granite-3-2b", choices=list(ARCH_IDS))
@@ -76,13 +89,15 @@ def main(argv=None):
         multi = args.mesh == "multi"
         n, shape = (512, (2, 16, 16)) if multi else (256, (16, 16))
         world = int(os.environ.get("WORLD_SIZE", "1"))
-        if world != n:
+        if world < n:
             raise SystemExit(f"need {n} devices for mesh {shape}; have {world} — "
                              f"start {n} ranks with torchrun before --mesh {args.mesh}")
         if args.device == "cuda":
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
         dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
         mesh = make_production_mesh(multi_pod=multi)
+        if sits_out(mesh):
+            return
         set_logical_rules(mesh_rules(args.arch, multi, batch, args.no_fsdp))
 
     pipe = for_model(cfg, seq_len=seq, global_batch=batch, mode="markov")

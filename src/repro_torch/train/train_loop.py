@@ -150,10 +150,11 @@ def train(cfg: ModelConfig, pipeline, steps: int, lr: float = 3e-4,
     latest checkpoint when it has one; batches come from
     `pipeline.batch_at(step)` and are moved to the device.
 
-    With `mesh` (a `DeviceMesh` over every rank, the logical rules set:
-    `launch/train.py --mesh`), the parameters, optimizer state and each
-    batch are placed on it by the rules (FSDP + TP), every rank runs the
-    same loop, and checkpoints are gathered whole and written by rank 0
+    With `mesh` (a `DeviceMesh` over the first ranks of the process group,
+    the logical rules set: `launch/train.py --mesh`), the parameters,
+    optimizer state and each batch are placed on it by the rules (FSDP +
+    TP), every rank of the mesh runs the same loop (a rank past it does not
+    call `train`), and checkpoints are gathered whole and written by rank 0
     (JAX's format holds whole arrays)."""
     dev = resolve_device(device) if mesh is None else device_of(mesh)
     lr_fn = opt.warmup_cosine(lr, warmup=max(steps // 20, 10), total=steps)
@@ -235,4 +236,13 @@ def _save(mgr, step: int, params, opt_state, mesh) -> None:
                                prm.tree_map(_whole, opt_state.v))
     if dist.get_rank() == 0:
         mgr.save_train_state(step, params, opt_state)
-    dist.barrier()
+    _mesh_barrier(mesh)
+
+
+def _mesh_barrier(mesh) -> None:
+    """A barrier over the mesh's ranks alone: ranks of the process group
+    past the mesh may have left it (launch/train.py). One barrier over each
+    mesh dim's group in turn: after dim d's, a rank knows that every rank
+    differing from it in dims 0..d only has arrived, so after the last, all."""
+    for d in range(mesh.ndim):
+        dist.barrier(group=mesh.get_group(d))

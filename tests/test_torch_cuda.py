@@ -60,6 +60,8 @@ from repro_torch.serve.engine import AnnEngine  # noqa: E402
 from repro_torch.serve.frontend import ServingFrontend, TenantFilterBank  # noqa: E402
 from repro_torch.serve.knn_memory import KNNMemory  # noqa: E402
 
+from torch_recall import assert_recall_means_close  # noqa: E402
+
 pytestmark = pytest.mark.cuda
 
 
@@ -472,12 +474,20 @@ def test_slice_on_card_matches_cpu(cuda):
     same = (ids1.cpu() == ids0).numpy()
     assert same.mean() >= 0.995
     np.testing.assert_allclose(s1.cpu().numpy()[same], s0.numpy()[same], rtol=1e-5)
-    # free build on the card (Lloyd kernel included)
-    free = build_ivf_sharded(torch.Generator().manual_seed(0), X, 64,
-                             pq_subspaces=8, device=cuda)
-    ids2, _ = search_jit_batched(pack_ivf(free), Q, **kw)
+    # free builds on the card (Lloyd kernel included) against the CPU's:
+    # two devices' float paths are two draws, so the mean recall over
+    # seeds 0-3 on each side (tests/torch_recall.py)
     gt = true_neighbors(X, Q, k=10)
-    assert abs(recall_at_k(ids2.cpu(), gt, 10) - recall_at_k(ids0, gt, 10)) <= 0.02
+
+    def draw(device):
+        def recall(seed):
+            idx = cpu if (seed, device) == (0, "cpu") else build_ivf_sharded(
+                torch.Generator().manual_seed(seed), X, 64, pq_subspaces=8, device=device)
+            ids, _ = search_jit_batched(pack_ivf(idx), Q, **kw)
+            return recall_at_k(ids.cpu(), gt, 10)
+        return recall
+
+    assert_recall_means_close(draw(cuda), draw("cpu"))
     assert all(b > a for a, b in zip(launches0, (
         vq_assign.launches, soar_assign.launches, lloyd_sweep.launches,
         pq_score_probes.launches)))

@@ -120,6 +120,10 @@ try:
     table["uneven"] = "no error"
 except ValueError as e:
     table["uneven"] = "ValueError: " + str(e)
+from repro.launch.mesh import make_production_mesh, make_test_mesh
+table["mesh_ids"] = {"single": make_production_mesh().device_ids.tolist(),
+                     "multi": make_production_mesh(multi_pod=True).device_ids.tolist(),
+                     "test_2x2": make_test_mesh((2, 2)).device_ids.tolist()}
 with open(os.path.join(out_dir, "table.json"), "w") as f:
     json.dump(table, f)
 
@@ -382,6 +386,147 @@ def test_production_mesh_refuses_another_world_size():
             make_production_mesh(device_type="cpu")
     finally:
         dist.destroy_process_group()
+
+
+def _fake_rank(world: int, rank: int) -> None:
+    """A fake default group of `world` ranks, this process rank `rank`."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+
+
+@pytest.mark.parametrize("rank", [0, 300])
+def test_production_mesh_holds_the_first_256_of_512_ranks(rank):
+    """At a world of 512 the (16, 16) mesh is ranks arange(256), row-major,
+    as JAX takes its first 256 devices: rank 0 sits at (0, 0); rank 300
+    is outside it, and its shard of a distributed parameter is empty."""
+    _fake_rank(512, rank)
+    try:
+        mesh = make_production_mesh(device_type="cpu")
+        assert torch.equal(mesh.mesh, torch.arange(256).view(16, 16))
+        w = prm.distribute({"w": torch.ones(32, 48)}, {"w": ("data", "model")}, mesh)["w"]
+        assert tuple(w.shape) == (32, 48)
+        if rank == 0:
+            assert tuple(mesh.get_coordinate()) == (0, 0)
+            assert tuple(w.to_local().shape) == (2, 3)
+        else:
+            assert mesh.get_coordinate() is None
+            assert w.to_local().numel() == 0
+            assert local_range((32, 48), mesh, to_placements(mesh, ("data", "model"))) \
+                == ((0, 0), (0, 0))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_multi_pod_mesh_holds_the_first_512_of_600_ranks():
+    _fake_rank(600, 0)
+    try:
+        mesh = make_production_mesh(multi_pod=True, device_type="cpu")
+        assert torch.equal(mesh.mesh, torch.arange(512).view(2, 16, 16))
+        assert mesh.mesh_dim_names == ("pod", "data", "model")
+        assert tuple(mesh.get_coordinate()) == (0, 0, 0)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_meshes_hold_the_ranks_jax_meshes_hold_devices(run):
+    """JAX's `make_production_mesh` (both) and `make_test_mesh((2, 2))`
+    over 512 host devices hold the device ids the port's meshes hold as
+    ranks: the production meshes at a world of 512, the test mesh at 8."""
+    ids = run["table"]["mesh_ids"]
+    for multi, key in ((False, "single"), (True, "multi")):
+        fake_group(512)
+        try:
+            assert make_production_mesh(multi_pod=multi, device_type="cpu").mesh.tolist() \
+                == ids[key], key
+        finally:
+            dist.destroy_process_group()
+    fake_group(8)
+    try:
+        assert make_test_mesh((2, 2), device_type="cpu").mesh.tolist() == ids["test_2x2"]
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("rank", [0, 300])
+def test_train_mesh_single_sits_out_past_the_mesh(rank, tmp_path, monkeypatch, capsys):
+    """`launch/train.py --mesh single` at a world of 512: every rank builds
+    the mesh; rank 0 trains on it, rank 300 prints that it sits out and
+    returns (exit 0) without training or writing a checkpoint."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch import train as launch_train
+
+    real_init = dist.init_process_group
+    monkeypatch.setenv("WORLD_SIZE", "512")
+    monkeypatch.setenv("RANK", str(rank))
+    monkeypatch.setattr(dist, "init_process_group", lambda backend: real_init(
+        "fake", store=FakeStore(), rank=rank, world_size=512))
+    calls = []
+    monkeypatch.setattr(launch_train, "train",
+                        lambda *a, mesh, **kw: calls.append(tuple(mesh.get_coordinate())))
+    try:
+        launch_train.main(["--device", "cpu", "--mesh", "single", "--ckpt-dir",
+                           str(tmp_path / "ck")])
+    finally:
+        L.set_logical_rules({})
+    assert not dist.is_initialized()
+    if rank == 0:
+        assert calls == [(0, 0)]
+    else:
+        assert calls == [] and not (tmp_path / "ck").exists()
+        assert "rank 300 of 512 sits out" in capsys.readouterr().out
+
+
+SIT_OUT_SCRIPT = r'''
+import sys
+from datetime import timedelta
+import torch, torch.distributed as dist
+from repro_torch.ckpt.checkpoint import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import for_model
+from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models.layers import set_logical_rules
+from repro_torch.train.train_loop import train
+
+rank, world, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                        world_size=world, timeout=timedelta(seconds=60))
+mesh = make_test_mesh((1, 2), device_type="cpu")
+if not launch_train.sits_out(mesh):
+    set_logical_rules(launch_train.mesh_rules("granite-3-2b", False, 8, False))
+    cfg = get_config("granite-3-2b").smoke_config()
+    train(cfg, for_model(cfg, seq_len=32, global_batch=8, mode="markov"), steps=2,
+          ckpt_manager=CheckpointManager(f"{tmp}/ck"), ckpt_every=1, device="cpu",
+          mesh=mesh)
+    dist.destroy_process_group()
+print("OK", rank)
+'''
+
+
+def test_mesh_trains_and_checkpoints_after_ranks_past_it_leave(tmp_path):
+    """Three gloo ranks (processes) and a (1, 2) mesh over ranks 0-1: rank 2
+    sits out and leaves the process group at once, as `launch/train.py`
+    has it; ranks 0-1 run the real `train` for 2 steps with a checkpoint
+    after each. A checkpoint's barrier holds the mesh's ranks only: one over
+    the whole group would wait for rank 2 until gloo's timeout."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+
+    procs = [subprocess.Popen([sys.executable, "-c", SIT_OUT_SCRIPT, str(r), "3",
+                               str(tmp_path)], cwd=ROOT, env=ENV, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(3)]
+    try:
+        outs = [p.communicate(timeout=T_SUB) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (o, e) in zip(procs, outs):
+        assert p.returncode == 0 and "OK" in o, e[-4000:]
+    assert "rank 2 of 3 sits out" in outs[2][0]
+    assert "sits out" not in outs[0][0] + outs[1][0]
+    assert CheckpointManager(str(tmp_path / "ck")).latest_step() == 2
 
 
 def test_uneven_dim_jax_refuses_torch_chunks(run):
