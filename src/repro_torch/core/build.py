@@ -20,12 +20,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.ivf import IVFIndex, _phase, finalize_ivf, spill_plan
+from repro_torch.core.ivf import IVFIndex, finalize_ivf, spill_plan
 from repro_torch.core.kmeans import train_kmeans
 from repro_torch.core.router import as_router
 from repro_torch.kernels.soar_assign import assign_fused
 from repro_torch.quant.anisotropic import anisotropic_kmeans, eta_from_threshold
 from repro_torch.quant.pq import PQCodebook
+from repro_torch.spans import span, timed
 from repro_torch.utils import Device, as_tensor, resolve_device
 
 DEFAULT_TRAIN_SAMPLE = 131_072
@@ -41,8 +42,9 @@ def train_codebook(gen: torch.Generator, X: torch.Tensor, n_partitions: int, *,
     anisotropic_T > 0 (max(4, train_iters // 3) rounds)."""
     n, d = X.shape
     if train_sample and n > train_sample:
-        sel = torch.randperm(n, generator=gen)[:train_sample]
-        Xt = X[sel.to(X.device)].contiguous()
+        with span("kmeans.sample"):
+            sel = torch.randperm(n, generator=gen)[:train_sample]
+            Xt = X[sel.to(X.device)].contiguous()
     else:
         Xt = X
     if anisotropic_T > 0.0:
@@ -95,33 +97,36 @@ def build_ivf_sharded(gen: Optional[torch.Generator], X, n_partitions: int, *,
     derived from the k-means seed without a further draw from `gen`, so
     every other array of the index is the same as with router=None.
     timings, when given, collects per-phase wall seconds (kmeans,
-    spill_assign, router, csr, pq_train, encode). Runs on `device` (CUDA
-    unless the caller passes "cpu").
+    spill_assign, router, csr, pq_train, encode, rerank). The build is
+    the span "build" and each phase its child "build.<phase>"
+    (`repro_torch.spans`). Runs on `device` (CUDA unless the caller passes
+    "cpu").
     """
-    dev = resolve_device(device)
-    if gen is None:
-        gen = torch.Generator().manual_seed(0)
-    seeds = torch.randint(0, 2 ** 62, (2,), generator=gen).tolist()
-    gkm = torch.Generator().manual_seed(seeds[0])
-    gpq = torch.Generator().manual_seed(seeds[1])
-    X = as_tensor(X, dev, torch.float32).contiguous()
-    with _phase(timings, "kmeans", dev):
-        if codebook is None:
-            C = train_codebook(gkm, X, n_partitions, train_sample=train_sample,
-                               train_iters=train_iters, anisotropic_T=anisotropic_T,
-                               init=init, batch_size=batch_size)
-        else:
-            C = as_tensor(codebook, dev, torch.float32).contiguous()
-    with _phase(timings, "spill_assign", dev):
-        assignments = assign_shards(X, C, spill_mode=spill_mode, lam=lam,
-                                    n_spills=n_spills, shard_size=shard_size)
-    with _phase(timings, "router", dev):
-        grt = torch.Generator().manual_seed(seeds[0] ^ 0x52F7)
-        rt = as_router(router, C, gen=grt, **(router_kw or {}))
-        if rt is not None:
-            rt = rt.to(dev)
-    if pq is not None:
-        pq = PQCodebook(as_tensor(pq.centers, dev, torch.float32))
-    return finalize_ivf(gpq, X, C, assignments, pq_subspaces=pq_subspaces,
-                        rerank=rerank, spill_mode=spill_mode, lam=lam, pq=pq,
-                        timings=timings, router=rt)
+    with span("build"):
+        dev = resolve_device(device)
+        if gen is None:
+            gen = torch.Generator().manual_seed(0)
+        seeds = torch.randint(0, 2 ** 62, (2,), generator=gen).tolist()
+        gkm = torch.Generator().manual_seed(seeds[0])
+        gpq = torch.Generator().manual_seed(seeds[1])
+        X = as_tensor(X, dev, torch.float32).contiguous()
+        with timed("build.kmeans", timings, "kmeans", dev):
+            if codebook is None:
+                C = train_codebook(gkm, X, n_partitions, train_sample=train_sample,
+                                   train_iters=train_iters, anisotropic_T=anisotropic_T,
+                                   init=init, batch_size=batch_size)
+            else:
+                C = as_tensor(codebook, dev, torch.float32).contiguous()
+        with timed("build.spill_assign", timings, "spill_assign", dev):
+            assignments = assign_shards(X, C, spill_mode=spill_mode, lam=lam,
+                                        n_spills=n_spills, shard_size=shard_size)
+        with timed("build.router", timings, "router", dev):
+            grt = torch.Generator().manual_seed(seeds[0] ^ 0x52F7)
+            rt = as_router(router, C, gen=grt, **(router_kw or {}))
+            if rt is not None:
+                rt = rt.to(dev)
+        if pq is not None:
+            pq = PQCodebook(as_tensor(pq.centers, dev, torch.float32))
+        return finalize_ivf(gpq, X, C, assignments, pq_subspaces=pq_subspaces,
+                            rerank=rerank, spill_mode=spill_mode, lam=lam, pq=pq,
+                            timings=timings, router=rt)

@@ -15,8 +15,6 @@ sharded build is `core/build.py::build_ivf_sharded`.
 """
 from __future__ import annotations
 
-import time
-from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional
 
@@ -30,6 +28,7 @@ from repro_torch.quant.anisotropic import anisotropic_kmeans, eta_from_threshold
 from repro_torch.quant.int8 import Int8Data, int8_quantize
 from repro_torch.quant.pq import (PQ_TRAIN_SAMPLE, PQCodebook, _encode_block,
                                   _sample_rows, train_pq)
+from repro_torch.spans import span, timed
 from repro_torch.utils import Device, as_tensor, resolve_device
 
 ENCODE_CHUNK = 16_384      # assignments per residual-encode step
@@ -77,21 +76,6 @@ class IVFIndex:
         )
 
 
-@contextmanager
-def _phase(timings: Optional[dict], name: str, device: torch.device):
-    """Add the block's wall seconds to timings[name] (no-op when timings is
-    None). On a CUDA device the block's queued work is waited for, so a
-    phase is charged with its own device time."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if timings is not None:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
-
-
 def _csr_from_assignments(assignments: torch.Tensor, c: int):
     """(n, a) assignment matrix → CSR (starts, point_ids, order).
 
@@ -124,7 +108,7 @@ def finalize_ivf(gen: torch.Generator, X: torch.Tensor, C: torch.Tensor,
     if rerank not in ("f32", "int8"):
         raise ValueError(f"rerank must be 'f32' or 'int8', got {rerank!r}")
     dev = X.device
-    with _phase(timings, "csr", dev):
+    with timed("build.csr", timings, "csr", dev):
         assignments = assignments.to(torch.int32)
         starts, point_ids, order = _csr_from_assignments(assignments, C.shape[0])
     codes = None
@@ -132,15 +116,16 @@ def finalize_ivf(gen: torch.Generator, X: torch.Tensor, C: torch.Tensor,
         flat_part = assignments.reshape(-1).to(torch.int64)[order]
         pids = point_ids.to(torch.int64)
         if pq is None:
-            with _phase(timings, "pq_train", dev):
+            with timed("build.pq_train", timings, "pq_train", dev):
                 na = pids.shape[0]
-                if na > PQ_TRAIN_SAMPLE:   # train_pq's own sample, drawn here
-                    sel = _sample_rows(gen, na, PQ_TRAIN_SAMPLE).to(dev)
-                    res = X[pids[sel]] - C[flat_part[sel]]
-                else:
-                    res = X[pids] - C[flat_part]
+                with span("pq.sample"):
+                    if na > PQ_TRAIN_SAMPLE:   # train_pq's own sample, drawn here
+                        sel = _sample_rows(gen, na, PQ_TRAIN_SAMPLE).to(dev)
+                        res = X[pids[sel]] - C[flat_part[sel]]
+                    else:
+                        res = X[pids] - C[flat_part]
                 pq = train_pq(gen, res, pq_subspaces)
-        with _phase(timings, "encode", dev):
+        with timed("build.encode", timings, "encode", dev):
             m, _, s = pq.centers.shape
             codes = torch.empty((pids.shape[0], m), dtype=torch.uint8, device=dev)
             for i0 in range(0, pids.shape[0], ENCODE_CHUNK):
@@ -148,7 +133,7 @@ def finalize_ivf(gen: torch.Generator, X: torch.Tensor, C: torch.Tensor,
                        - C[flat_part[i0:i0 + ENCODE_CHUNK]])
                 codes[i0:i0 + res.shape[0]] = _encode_block(
                     pq.centers, res.reshape(-1, m, s))
-    with _phase(timings, "rerank", dev):
+    with timed("build.rerank", timings, "rerank", dev):
         rerank_int8 = int8_quantize(X) if rerank == "int8" else None
     return IVFIndex(centroids=C, starts=starts, point_ids=point_ids, codes=codes,
                     pq=pq, rerank_int8=rerank_int8,
@@ -186,42 +171,44 @@ def build_ivf(gen: Optional[torch.Generator], X, n_partitions: int,
     `soar_assign_multi`); otherwise `train_kmeans` (init / batch_size select its flagged modes)
     and `assign_fused`. gen: the build's random stream (None → seed 0),
     split into the k-means and PQ generators as in `build_ivf_sharded`;
-    router / router_kw / timings as there. Runs on `device` (CUDA unless
-    the caller passes "cpu").
+    router / router_kw / timings, and the spans "build" and
+    "build.<phase>", as there. Runs on `device` (CUDA unless the caller
+    passes "cpu").
     """
-    dev = resolve_device(device)
-    if gen is None:
-        gen = torch.Generator().manual_seed(0)
-    seeds = torch.randint(0, 2 ** 62, (2,), generator=gen).tolist()
-    gkm = torch.Generator().manual_seed(seeds[0])
-    gpq = torch.Generator().manual_seed(seeds[1])
-    X = as_tensor(X, dev, torch.float32).contiguous()
-    with _phase(timings, "kmeans", dev):
-        if anisotropic_T > 0.0:
-            eta = eta_from_threshold(anisotropic_T, X.shape[1])
-            C, primary = anisotropic_kmeans(gkm, X, n_partitions, eta,
-                                            iters=max(4, train_iters // 3))
-        else:
-            C = train_kmeans(gkm, X, n_partitions, iters=train_iters, init=init,
-                             batch_size=batch_size, final_assign=False).centroids
-            primary = None
-    eff_lam, eff_spills = spill_plan(spill_mode, lam, n_spills)
-    with _phase(timings, "spill_assign", dev):
-        if primary is None:
-            assignments = assign_fused(X, C, lam=eff_lam, n_spills=eff_spills)
-        elif spill_mode == "none":
-            assignments = primary[:, None]
-        elif spill_mode != "soar" or n_spills == 1:
-            # anisotropic primaries are not the Euclidean argmin: spill on them
-            sec = soar_assign(X, unit_residuals(X, C, primary), primary, C, eff_lam)[0]
-            assignments = torch.stack([primary, sec], dim=1)
-        else:
-            assignments = soar_assign_multi(X, C, primary, lam=lam, n_spills=n_spills)
-    with _phase(timings, "router", dev):
-        grt = torch.Generator().manual_seed(seeds[0] ^ 0x52F7)
-        rt = as_router(router, C, gen=grt, **(router_kw or {}))
-        if rt is not None:
-            rt = rt.to(dev)
-    return finalize_ivf(gpq, X, C, assignments, pq_subspaces=pq_subspaces,
-                        rerank=rerank, spill_mode=spill_mode, lam=lam,
-                        timings=timings, router=rt)
+    with span("build"):
+        dev = resolve_device(device)
+        if gen is None:
+            gen = torch.Generator().manual_seed(0)
+        seeds = torch.randint(0, 2 ** 62, (2,), generator=gen).tolist()
+        gkm = torch.Generator().manual_seed(seeds[0])
+        gpq = torch.Generator().manual_seed(seeds[1])
+        X = as_tensor(X, dev, torch.float32).contiguous()
+        with timed("build.kmeans", timings, "kmeans", dev):
+            if anisotropic_T > 0.0:
+                eta = eta_from_threshold(anisotropic_T, X.shape[1])
+                C, primary = anisotropic_kmeans(gkm, X, n_partitions, eta,
+                                                iters=max(4, train_iters // 3))
+            else:
+                C = train_kmeans(gkm, X, n_partitions, iters=train_iters, init=init,
+                                 batch_size=batch_size, final_assign=False).centroids
+                primary = None
+        eff_lam, eff_spills = spill_plan(spill_mode, lam, n_spills)
+        with timed("build.spill_assign", timings, "spill_assign", dev):
+            if primary is None:
+                assignments = assign_fused(X, C, lam=eff_lam, n_spills=eff_spills)
+            elif spill_mode == "none":
+                assignments = primary[:, None]
+            elif spill_mode != "soar" or n_spills == 1:
+                # anisotropic primaries are not the Euclidean argmin: spill on them
+                sec = soar_assign(X, unit_residuals(X, C, primary), primary, C, eff_lam)[0]
+                assignments = torch.stack([primary, sec], dim=1)
+            else:
+                assignments = soar_assign_multi(X, C, primary, lam=lam, n_spills=n_spills)
+        with timed("build.router", timings, "router", dev):
+            grt = torch.Generator().manual_seed(seeds[0] ^ 0x52F7)
+            rt = as_router(router, C, gen=grt, **(router_kw or {}))
+            if rt is not None:
+                rt = rt.to(dev)
+        return finalize_ivf(gpq, X, C, assignments, pq_subspaces=pq_subspaces,
+                            rerank=rerank, spill_mode=spill_mode, lam=lam,
+                            timings=timings, router=rt)

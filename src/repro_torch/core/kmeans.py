@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.lloyd import lloyd_sweep
+from repro_torch.spans import span
 from repro_torch.utils import pairwise_neg_sqdist_argmin, topk_first
 
 
@@ -188,41 +189,47 @@ def train_kmeans(gen: torch.Generator, X: torch.Tensor, c: int, iters: int = 15,
     sweeps (no early stop). spherical renormalizes the centroids after
     each sweep. final_assign=False skips the trailing re-assignment pass
     (callers that assign themselves); assignments is then None and the
-    distortion is the last sweep's.
+    distortion is the last sweep's. The row sample, the seeding and the
+    sweeps are the spans "kmeans.sample", "kmeans.seed" and "kmeans.lloyd"
+    (`repro_torch.spans`).
     """
     X = X.to(torch.float32).contiguous()
     n = X.shape[0]
     if n > init_sample:
-        Xi = X[torch.randperm(n, generator=gen)[:init_sample].to(X.device)]
+        with span("kmeans.sample"):
+            Xi = X[torch.randperm(n, generator=gen)[:init_sample].to(X.device)]
     else:
         Xi = X
-    if init == "pp":
-        C = kmeans_pp_init(gen, Xi, c)
-    elif init == "parallel":
-        C = kmeans_parallel_init(gen, Xi, c, l=min(int(init_oversample * c), Xi.shape[0]),
-                                 rounds=init_rounds)
-    else:
-        raise ValueError(f"unknown init {init!r}")
+    with span("kmeans.seed"):
+        if init == "pp":
+            C = kmeans_pp_init(gen, Xi, c)
+        elif init == "parallel":
+            C = kmeans_parallel_init(gen, Xi, c,
+                                     l=min(int(init_oversample * c), Xi.shape[0]),
+                                     rounds=init_rounds)
+        else:
+            raise ValueError(f"unknown init {init!r}")
     hist = []
     dist = torch.tensor(np.inf)
-    if batch_size is not None:
-        v = torch.zeros(c, dtype=X.dtype, device=X.device)
-        for _ in range(iters):
-            C, v, dist = _minibatch_step(gen, X, C, v, batch_size)
-            if spherical:
-                C = _normalized(C)
-            hist.append(float(dist))
-    else:
-        prev = np.inf
-        for _ in range(iters):
-            C, _, dist = lloyd_sweep(X, C)
-            if spherical:
-                C = _normalized(C)
-            d = float(dist)
-            hist.append(d)
-            if _stopped(prev, d, tol):
-                break
-            prev = d
+    with span("kmeans.lloyd"):
+        if batch_size is not None:
+            v = torch.zeros(c, dtype=X.dtype, device=X.device)
+            for _ in range(iters):
+                C, v, dist = _minibatch_step(gen, X, C, v, batch_size)
+                if spherical:
+                    C = _normalized(C)
+                hist.append(float(dist))
+        else:
+            prev = np.inf
+            for _ in range(iters):
+                C, _, dist = lloyd_sweep(X, C)
+                if spherical:
+                    C = _normalized(C)
+                d = float(dist)
+                hist.append(d)
+                if _stopped(prev, d, tol):
+                    break
+                prev = d
     if not final_assign:
         return KMeansResult(C, None, dist, np.asarray(hist))
     assign, min_d = pairwise_neg_sqdist_argmin(X, C)

@@ -10,7 +10,10 @@ PQ LUT scores plus the coarse ⟨q, c⟩ term are read by probe id from the
 packed codes (`pq_score_probes`, the CUDA kernel on the card, so the
 window's codes are never gathered) → dedup-by-max over the window → top
 rerank_budget → exact f32 rerank → top final_k. No intermediate scales
-with the database size n.
+with the database size n. Each tile of `search_jit_batched` is the span
+"search.tile", its stages its children "search.route", "search.gather",
+"search.lut", "search.score", "search.dedup", "search.rerank" and, when
+the filtered second pass runs, "search.escalate" (`repro_torch.spans`).
 
 A filter is an (n,) uint8 bitmap over point ids, gathered per window;
 with `escalate`, a second pass one router-escalation step up backs rows
@@ -35,6 +38,7 @@ from repro_torch.core.router import FlatRouter, check_query_dim
 from repro_torch.kernels.pq_score import pq_score_probes
 from repro_torch.quant.int8 import int8_dequantize
 from repro_torch.quant.pq import PQCodebook, pq_lut
+from repro_torch.spans import span
 from repro_torch.utils import as_tensor, topk_first
 
 _NEG_INF = float("-inf")
@@ -158,36 +162,44 @@ def _search_pass(packed: PackedIVF, Q: torch.Tensor, router, top_t: int,
     counts the unique surviving candidates, capped at the stage budget
     (rerank_budget with PQ, else final_k): the escalation signal.
     """
-    psc, parts = router.route(Q, top_t)                 # (nq, t)
-    ids = packed.part_ids[parts]                        # (nq, t, pmax)
-    nq, t, pmax = ids.shape
-    ids = ids.reshape(nq, t * pmax)
+    with span("search.route"):
+        psc, parts = router.route(Q, top_t)             # (nq, t)
+    with span("search.gather"):
+        ids = packed.part_ids[parts]                    # (nq, t, pmax)
+        nq, t, pmax = ids.shape
+        ids = ids.reshape(nq, t * pmax)
+        if filter is not None:     # from here on, ids >= 0 marks the valid slots
+            ids = torch.where(filter[ids.clamp(min=0).to(torch.int64)] > 0, ids, -1)
     surviving = None
-    if filter is not None:     # from here on, ids >= 0 marks the valid slots
-        ids = torch.where(filter[ids.clamp(min=0).to(torch.int64)] > 0, ids, -1)
     if packed.part_codes is None:
         # no PQ stage: exact-score the whole window; rerank_budget unused
-        rows = ids.clamp(min=0).to(torch.int64)
-        exact = torch.einsum("qwd,qd->qw", packed.rerank[rows], Q)
-        exact = torch.where(ids >= 0, exact, _NEG_INF)
-        di, dv = _pad_topk(*dedup_topk_window(ids, exact, final_k, multiplicity),
-                           final_k)
-        if filter is not None:
-            surviving = torch.isfinite(dv).sum(-1)
+        with span("search.score"):
+            rows = ids.clamp(min=0).to(torch.int64)
+            exact = torch.einsum("qwd,qd->qw", packed.rerank[rows], Q)
+            exact = torch.where(ids >= 0, exact, _NEG_INF)
+        with span("search.dedup"):
+            di, dv = _pad_topk(*dedup_topk_window(ids, exact, final_k, multiplicity),
+                               final_k)
+            if filter is not None:
+                surviving = torch.isfinite(dv).sum(-1)
         return di, dv, surviving
-    luts = pq_lut(packed.pq, Q)                                   # (nq, m, 16)
+    with span("search.lut"):
+        luts = pq_lut(packed.pq, Q)                               # (nq, m, 16)
     # PQ score + ⟨q, c⟩ up to each partition's extent, then masked by id
     # (in place: the scorer's output is this pass's own)
-    approx = pq_score_probes(luts, packed.part_codes, packed.extent, parts, psc)
-    approx = approx.masked_fill_(ids < 0, _NEG_INF)
-    bi, bv = dedup_topk_window(ids, approx, rerank_budget, multiplicity)
-    if filter is not None:
-        surviving = torch.isfinite(bv).sum(-1)
-    exact = torch.einsum("qbd,qd->qb",
-                         packed.rerank[bi.clamp(min=0).to(torch.int64)], Q)
-    exact = torch.where(torch.isfinite(bv), exact, _NEG_INF)
-    fv, fpos = topk_first(exact, min(final_k, exact.shape[-1]))
-    fi, fv = _pad_topk(torch.gather(bi, -1, fpos), fv, final_k)
+    with span("search.score"):
+        approx = pq_score_probes(luts, packed.part_codes, packed.extent, parts, psc)
+        approx = approx.masked_fill_(ids < 0, _NEG_INF)
+    with span("search.dedup"):
+        bi, bv = dedup_topk_window(ids, approx, rerank_budget, multiplicity)
+        if filter is not None:
+            surviving = torch.isfinite(bv).sum(-1)
+    with span("search.rerank"):
+        exact = torch.einsum("qbd,qd->qb",
+                             packed.rerank[bi.clamp(min=0).to(torch.int64)], Q)
+        exact = torch.where(torch.isfinite(bv), exact, _NEG_INF)
+        fv, fpos = topk_first(exact, min(final_k, exact.shape[-1]))
+        fi, fv = _pad_topk(torch.gather(bi, -1, fpos), fv, final_k)
     return fi, fv, surviving
 
 
@@ -209,11 +221,13 @@ def _search_block(packed: PackedIVF, Q: torch.Tensor, top_t: int, final_k: int,
     if filter is None or not escalate or not router.can_escalate(top_t):
         return ids1, vals1
     thresh = rerank_budget if packed.part_codes is not None else final_k
-    r2, t2 = router.escalated(top_t)
-    ids2, vals2, _ = _search_pass(packed, Q, r2, t2, final_k, rerank_budget,
-                                  multiplicity, filter)
-    need = (surv1 < thresh)[:, None]
-    return torch.where(need, ids2, ids1), torch.where(need, vals2, vals1)
+    with span("search.escalate", rows=Q.shape[0]) as esc:
+        r2, t2 = router.escalated(top_t)
+        ids2, vals2, _ = _search_pass(packed, Q, r2, t2, final_k, rerank_budget,
+                                      multiplicity, filter)
+        need = (surv1 < thresh)[:, None]
+        esc.count(kept=need)
+        return torch.where(need, ids2, ids1), torch.where(need, vals2, vals1)
 
 
 def _filter_bits(packed: PackedIVF, filter) -> Optional[torch.Tensor]:
@@ -287,13 +301,14 @@ def search_jit_batched(packed: PackedIVF, Q, top_t: int, final_k: int,
                 torch.zeros((0, final_k), dtype=torch.float32, device=dev))
     outs = []
     for i0 in range(0, nq, bq):
-        Qt = Q[i0:i0 + bq]
-        n = Qt.shape[0]
-        if tile_rows is not None and n < tile_rows:
-            Qt = torch.cat([Qt, Qt.new_zeros((tile_rows - n, Qt.shape[1]))])
-        ids, vals = _search_block(packed, Qt, top_t, final_k, rerank_budget,
-                                  multiplicity, filter, escalate, router)
-        outs.append((ids[:n], vals[:n]))
+        with span("search.tile", tile=i0 // bq):
+            Qt = Q[i0:i0 + bq]
+            n = Qt.shape[0]
+            if tile_rows is not None and n < tile_rows:
+                Qt = torch.cat([Qt, Qt.new_zeros((tile_rows - n, Qt.shape[1]))])
+            ids, vals = _search_block(packed, Qt, top_t, final_k, rerank_budget,
+                                      multiplicity, filter, escalate, router)
+            outs.append((ids[:n], vals[:n]))
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
 
 

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels.lloyd import batched_inner, lloyd_sweep_batched
 from repro_torch.kernels.ref import pq_score_ref
+from repro_torch.spans import span
 
 PQ_KMEANS_CHUNK = 16_384
 PQ_TRAIN_SAMPLE = 32_768
@@ -40,7 +41,9 @@ def train_pq(gen: torch.Generator, X: torch.Tensor, n_subspaces: int,
              n_centers: int = 16, iters: int = 8,
              sample: int = PQ_TRAIN_SAMPLE, tol: float = 1e-5,
              init_sample: int = _INIT_SAMPLE) -> PQCodebook:
-    """Train per-subspace k-means codebooks on (a sample of) X, batched."""
+    """Train per-subspace k-means codebooks on (a sample of) X, batched.
+    The row samples, the seeding and the sweeps are the spans "pq.sample",
+    "pq.seed" and "pq.lloyd" (`repro_torch.spans`)."""
     from repro_torch.core.kmeans import _stopped, kmeans_pp_init_batched
 
     n, d = X.shape
@@ -48,34 +51,37 @@ def train_pq(gen: torch.Generator, X: torch.Tensor, n_subspaces: int,
         raise ValueError(f"d={d} is not a multiple of {n_subspaces} subspaces")
     m, s = n_subspaces, d // n_subspaces
     X = X.to(torch.float32)
-    if n > sample:
-        X = X[_sample_rows(gen, n, sample).to(X.device)]
-        n = sample
-    Xm = X.reshape(n, m, s).permute(1, 0, 2).contiguous()     # (m, n, s)
-    if n > init_sample:
-        isel = torch.stack([_sample_rows(gen, n, init_sample)
-                            for _ in range(m)]).to(X.device)
-        Xi = torch.gather(Xm, 1, isel[..., None].expand(-1, -1, s))
-    else:
-        Xi = Xm
-    C = kmeans_pp_init_batched(gen, Xi, n_centers)
+    with span("pq.sample"):
+        if n > sample:
+            X = X[_sample_rows(gen, n, sample).to(X.device)]
+            n = sample
+        Xm = X.reshape(n, m, s).permute(1, 0, 2).contiguous()     # (m, n, s)
+        if n > init_sample:
+            isel = torch.stack([_sample_rows(gen, n, init_sample)
+                                for _ in range(m)]).to(X.device)
+            Xi = torch.gather(Xm, 1, isel[..., None].expand(-1, -1, s))
+        else:
+            Xi = Xm
+    with span("pq.seed"):
+        C = kmeans_pp_init_batched(gen, Xi, n_centers)
 
     active = np.ones(m, bool)
     prev = np.full(m, np.inf)
     chunk = _sweep_chunk(n)
-    for _ in range(iters):
-        newC, _, dist = lloyd_sweep_batched(Xm, C, chunk=chunk)
-        act = torch.as_tensor(active, device=X.device)
-        C = torch.where(act[:, None, None], newC, C)
-        dvals = dist.cpu().numpy()
-        for j in np.nonzero(active)[0]:
-            dj = float(dvals[j])
-            if _stopped(prev[j], dj, tol):
-                active[j] = False
-            else:
-                prev[j] = dj
-        if not active.any():
-            break
+    with span("pq.lloyd"):
+        for _ in range(iters):
+            newC, _, dist = lloyd_sweep_batched(Xm, C, chunk=chunk)
+            act = torch.as_tensor(active, device=X.device)
+            C = torch.where(act[:, None, None], newC, C)
+            dvals = dist.cpu().numpy()
+            for j in np.nonzero(active)[0]:
+                dj = float(dvals[j])
+                if _stopped(prev[j], dj, tol):
+                    active[j] = False
+                else:
+                    prev[j] = dj
+            if not active.any():
+                break
     return PQCodebook(C)
 
 

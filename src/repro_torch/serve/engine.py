@@ -37,6 +37,7 @@ from repro_torch.models.params import tree_map
 from repro_torch.serve.api import (DEFAULT_BQ, DEFAULT_RERANK_BUDGET,
                                    DEFAULT_TOP_T, SearchParams, SearchResult,
                                    _positive_int, validate_queries)
+from repro_torch.spans import span, timed, wait
 from repro_torch.utils import Device, as_tensor, resolve_device
 
 
@@ -90,45 +91,25 @@ class ServeEngine:
 
         timings: if a dict, it receives "prefill_s" and "step_s" (a list,
         one per decode step), each on the host clock to the end of its
-        device work (the device is synchronised after each)."""
+        device work (the device is synchronised after each). The prefill
+        and each step are the spans "lm.prefill" and "lm.step"
+        (`repro_torch.spans`)."""
         inputs = {k: as_tensor(v, self.device) for k, v in inputs.items()}
-        clock = _Clock(self.device, timings)
-        logits, caches = self._prefill(self.params, inputs)
-        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
-        clock.lap("prefill_s")
+        if timings is not None:
+            timings.pop("prefill_s", None)   # this call's prefill alone
+            wait(self.device)                # earlier queued work is not the prefill's
+        with timed("lm.prefill", timings, "prefill_s", self.device):
+            logits, caches = self._prefill(self.params, inputs)
+            tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
         prefix = (self.cfg.n_prefix_embeds
                   if self.cfg.frontend == "vision" else 0)
         start = inputs["tokens"].shape[1] + prefix
         out = [tok]
         for i in range(n_new - 1):
-            tok, caches = self._step(self.params, tok, caches, start + i)
-            out.append(tok)
-            clock.lap("step_s")
+            with timed("lm.step", timings, "step_s", self.device, append=True):
+                tok, caches = self._step(self.params, tok, caches, start + i)
+                out.append(tok)
         return torch.cat(out, dim=1)
-
-
-class _Clock:
-    """Host seconds between laps, each to the end of the device's work;
-    does nothing without a timings dict."""
-
-    def __init__(self, device: torch.device, timings: Optional[dict]):
-        self.device, self.timings = device, timings
-        self.t = self._now() if timings is not None else 0.0
-
-    def _now(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def lap(self, key: str) -> None:
-        if self.timings is None:
-            return
-        t = self._now()
-        dt, self.t = t - self.t, t
-        if key == "step_s":
-            self.timings.setdefault(key, []).append(dt)
-        else:
-            self.timings[key] = dt
 
 
 class AnnEngine:
@@ -211,36 +192,50 @@ class AnnEngine:
         `serving_filter`; it escalates as `params.escalate` says.
         `engine_us` runs from the snapshot to the results on the host,
         whose copy waits for the device.
+
+        The call is the span "engine.search_request" (counts: `queries`,
+        `padded_rows`, the rows its tiles run, and `tiles`), with children
+        "engine.prepare" (validation, the filter, the snapshot),
+        "engine.copy_in" (padding and the copy to the device), the search's
+        tiles and "engine.copy_out" (`repro_torch.spans`).
         """
-        p = (params or SearchParams()).validate(
-            default_top_t=self.top_t, default_rerank=self.rerank_budget)
-        Q = validate_queries(Q, self.index.centroids.shape[1],
-                             sanitize=p.sanitize)
-        epoch = self.index._alive_epoch
-        if Q.shape[0] == 0:
-            return SearchResult(np.empty((0, p.k), np.int32),
-                                np.empty((0, p.k), np.float32),
-                                epoch=epoch, tenant=p.tenant,
-                                deadline_ms=p.deadline_ms)
-        faults.serve_point("engine:search")
-        if _filter_dev is not None:
-            filt, escalate = _filter_dev, p.escalate
-        else:
-            filt, escalate = self.index.serving_filter(
-                mask=p.filter_mask, ids=p.filter_ids, escalate=p.escalate)
-        t0 = time.perf_counter()
-        Qp, nq, bq = pad_queries(Q, self.bq)
-        ids, vals = search_jit_batched(
-            self.index.pack(), Qp,
-            top_t=clamp_top_t(p.top_t, self.index.centroids.shape[0]),
-            final_k=p.k, rerank_budget=max(p.rerank_budget, p.k),
-            bq=bq, multiplicity=1 + max(self.index.n_spills, 1),
-            filter=filt, escalate=escalate, tile_rows=self.bq)
-        ids, vals = ids[:nq].cpu().numpy(), vals[:nq].cpu().numpy()
-        return SearchResult(
-            ids, vals, engine_us=(time.perf_counter() - t0) * 1e6,
-            batch_size=nq, escalated=bool(escalate and filt is not None),
-            epoch=epoch, tenant=p.tenant, deadline_ms=p.deadline_ms)
+        with span("engine.search_request") as req:
+            with span("engine.prepare"):
+                p = (params or SearchParams()).validate(
+                    default_top_t=self.top_t, default_rerank=self.rerank_budget)
+                Q = validate_queries(Q, self.index.centroids.shape[1],
+                                     sanitize=p.sanitize)
+                epoch = self.index._alive_epoch
+                if Q.shape[0] == 0:
+                    return SearchResult(np.empty((0, p.k), np.int32),
+                                        np.empty((0, p.k), np.float32),
+                                        epoch=epoch, tenant=p.tenant,
+                                        deadline_ms=p.deadline_ms)
+                faults.serve_point("engine:search")
+                if _filter_dev is not None:
+                    filt, escalate = _filter_dev, p.escalate
+                else:
+                    filt, escalate = self.index.serving_filter(
+                        mask=p.filter_mask, ids=p.filter_ids, escalate=p.escalate)
+                t0 = time.perf_counter()
+                packed = self.index.pack()
+            with span("engine.copy_in"):
+                Qp, nq, bq = pad_queries(Q, self.bq)
+                Qd = as_tensor(Qp, packed.centroids.device, torch.float32)
+            tiles = -(-Qp.shape[0] // bq)
+            req.count(queries=nq, padded_rows=tiles * self.bq, tiles=tiles)
+            ids, vals = search_jit_batched(
+                packed, Qd,
+                top_t=clamp_top_t(p.top_t, self.index.centroids.shape[0]),
+                final_k=p.k, rerank_budget=max(p.rerank_budget, p.k),
+                bq=bq, multiplicity=1 + max(self.index.n_spills, 1),
+                filter=filt, escalate=escalate, tile_rows=self.bq)
+            with span("engine.copy_out"):
+                ids, vals = ids[:nq].cpu().numpy(), vals[:nq].cpu().numpy()
+            return SearchResult(
+                ids, vals, engine_us=(time.perf_counter() - t0) * 1e6,
+                batch_size=nq, escalated=bool(escalate and filt is not None),
+                epoch=epoch, tenant=p.tenant, deadline_ms=p.deadline_ms)
 
     # ---------------------------------------------------------- durability
     def save(self, path: str, *, extra: Optional[dict] = None,

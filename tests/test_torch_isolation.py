@@ -60,7 +60,7 @@ def test_every_port_module_imports_without_jax():
                      "repro_torch.launch.serve", "repro_torch.launch.ann_dryrun",
                      "repro_torch.launch.dryrun", "repro_torch.launch.op_analysis",
                      "repro_torch.launch.mesh", "repro_torch.launch.specs",
-                     "repro_torch.launch.profile_cell"):
+                     "repro_torch.launch.profile_cell", "repro_torch.spans"):
             assert name in names, (name, names)
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k, v in sys.modules.items() if v is not None)
