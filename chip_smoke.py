@@ -25,7 +25,8 @@ just after, and fails if one of its kernels was never launched:
      again warm (host clock) and one shard's assign_fused (CUDA events),
      and one warm tile's stage times (route, ids
      gather, window scoring, dedup, rerank) and the warm search's own peak
-     memory (kernels: Lloyd, vq_assign, soar_assign, pq_score_probes);
+     memory (kernels: Lloyd, vq_assign, soar_assign, pq_score_probes,
+     kmeans_pp);
   4. tree-routed search of the same queries through the index's tree
      router, warm: recall@10 >= 0.85, one tree_route launch per tile, ids
      agreeing on >= 99% of slots with the same search through the plain
@@ -48,7 +49,8 @@ just after, and fails if one of its kernels was never launched:
      k-means++ baseline, and the baseline with the Lloyd sweep's plain
      version ("plain Lloyd"); distortion and seconds of each, and the
      parallel and mini-batch distortion no more than 5% above the
-     baseline's (kernel: Lloyd);
+     baseline's (kernels: Lloyd, and kmeans_pp, one launch a seeding, in
+     every mode but "parallel", which launches none);
   9. variant A, the sharded build as the paper and ScaNN serve GloVe:
      build_ivf_sharded(spill_mode="soar", n_spills=2, lam=1,
      anisotropic_T=0.2 (ScaNN's anisotropic_quantization_threshold in its
@@ -59,13 +61,13 @@ just after, and fails if one of its kernels was never launched:
      agreeing on >= 99.9% of rows with assign_shards through the plain vq
      and soar versions, and the int8 codes and scales of the first 65,536
      rows equal to the CPU quantization's (kernels: Lloyd, vq_assign,
-     soar_assign, pq_score_probes);
+     soar_assign, pq_score_probes, kmeans_pp);
  10. variant B, the monolithic build on anisotropic primaries:
      build_ivf(spill_mode="soar", n_spills=1, anisotropic_T=0.2,
      rerank="f32", pq_subspaces=50) over all 1,000,000 rows, then the flat
      search: build phases, recall@10 >= 0.85, QPS, peak memory, and the
      spill column agreeing on >= 99.9% of rows with soar_assign_ref on the
-     card (kernels: Lloyd, soar_assign, pq_score_probes). Phases 9-10
+     card (kernels: Lloyd, soar_assign, pq_score_probes, kmeans_pp). Phases 9-10
      count the calls of the build's plain-torch work (the spill columns
      after the first, anisotropic_assign, the anisotropic update's normal
      equations and solve, int8_quantize), which no Pallas kernel computes
@@ -157,7 +159,7 @@ just after, and fails if one of its kernels was never launched:
      attention-output error < 0.15; at top_t 2 SOAR's key recall >= a
      spill_mode="none" memory's - 0.02; the decoded memory saved and
      reopened equal bit for bit, retrievals equal on every slot (kernels:
-     Lloyd, vq_assign, soar_assign);
+     Lloyd, vq_assign, soar_assign, kmeans_pp);
  16. the shard-parallel search at the JAX package's production
      shard (src/repro/launch/ann_dryrun.py: 1,000,000 vectors and 2,500
      partitions a shard, d = 100, 1,024 queries, PQ m = d / 4 = 25), four
@@ -185,7 +187,8 @@ just after, and fails if one of its kernels was never launched:
      (local_shards) and run make_distributed_search_pq(group=...): both
      ranks' ids and scores equal the in-process search bit for bit, with
      each rank's collective ms. Peak memory and the phase's seconds
-     (kernels: Lloyd, vq_assign, soar_assign, tree_route, pq_score_probes);
+     (kernels: Lloyd, vq_assign, soar_assign, tree_route, pq_score_probes,
+     kmeans_pp);
  17. the contracts of repro_torch.analysis on the card at the main path's
      width, over the hand-written kernels: each of the 11 registered
      contracts traced by the contracts' op recorder (a TorchDispatchMode
@@ -237,7 +240,16 @@ just after, and fails if one of its kernels was never launched:
      67 TFLOP/s), on a "plain work" line; the probe scorer's record also
      gives it at phase 16's m = 25 ("m25", one 64-query tile of shard 0,
      queued behind a longer kernel over 10 launches and over 50: timed back
-     to back, the tile's time followed the host).
+     to back, the tile's time followed the host); the seeding kernel at the
+     codebook's shape (32,768 sample rows x 100, c = 2,000) and at PQ's
+     (50 subspaces x 32,768 rows x 2, c = 16) on small integer
+     coordinates, where every f32 dot is exact, equal to its plain loop on
+     the card bit for bit; on phase 8's manifold sample twice bit for bit,
+     its c seeds c distinct rows of the data; its bound counts X, u and
+     the centres once and 2 n d f32 operations a pick (the distances; the
+     kernel waits on two team barriers a pick, so it is bound by latency,
+     not by either), and it is also timed at deep10m's codebook shape
+     (32,768 x 96, c = 32,768: "c32k").
      "launches" of a kernel sum every driven path above but the filtered
      one of phase 5, and phase 21's;
  19. the LM serving path, after phases 1-18's tensors are freed,
@@ -2179,6 +2191,7 @@ def ann_phases(args):
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import lloyd as lloyd_mod
     from repro_torch.kernels import soar_assign as soar_mod
+    from repro_torch.kernels.kmeans_pp import kmeans_pp
     from repro_torch.kernels.lloyd import lloyd_sweep
     from repro_torch.kernels.pq_score import pq_score, pq_score_probes
     from repro_torch.kernels.soar_assign import soar_assign, spill_columns, unit_residuals
@@ -2198,7 +2211,7 @@ def ann_phases(args):
     set_f32_precision()
     wrappers = {"pq_score_probes": pq_score_probes, "vq_assign": vq_assign,
                 "soar_assign": soar_assign, "lloyd_sweep": lloyd_sweep,
-                "tree_route": tree_route, "pq_score": pq_score}
+                "tree_route": tree_route, "pq_score": pq_score, "kmeans_pp": kmeans_pp}
 
     # 1. device
     smi = subprocess.run(
@@ -2249,7 +2262,7 @@ def ann_phases(args):
 
     mem: dict = {}
     (idx, packed, flat, ids), launches = drive(
-        wrappers, ("lloyd_sweep", "vq_assign", "soar_assign", "pq_score_probes"),
+        wrappers, ("lloyd_sweep", "vq_assign", "soar_assign", "pq_score_probes", "kmeans_pp"),
         main_path)
     lloyd_shapes = dict(lloyd_sweep.shapes)
     peak_mem = max(mem["peak_before_warm_search"], mem["warm_search_peak"])
@@ -2405,8 +2418,11 @@ def ann_phases(args):
              "spherical": dict(spherical=True), "pp": {}}
     ksummary = {}
     for name, kw in modes.items():
-        (res, secs), klaunch = drive(wrappers, ("lloyd_sweep",), lambda: timed(
+        seeds = () if name == "parallel" else ("kmeans_pp",)
+        (res, secs), klaunch = drive(wrappers, ("lloyd_sweep",) + seeds, lambda: timed(
             lambda: train_kmeans(torch.Generator().manual_seed(args.seed), Xt, C, **kw)))
+        assert klaunch["kmeans_pp"] == len(seeds), \
+            f"k-means {name}: {klaunch['kmeans_pp']} seeding launches"
         path_launches.update(klaunch)
         ksummary[name] = {"distortion": float(res.distortion), "seconds": secs,
                           "sweeps": len(res.history), "launches": klaunch}
@@ -2451,7 +2467,7 @@ def ann_phases(args):
         return vidx, out
 
     (aidx, asum), alaunch = drive(
-        wrappers, ("lloyd_sweep", "vq_assign", "soar_assign", "pq_score_probes"),
+        wrappers, ("lloyd_sweep", "vq_assign", "soar_assign", "pq_score_probes", "kmeans_pp"),
         lambda: variant(lambda ph: build_ivf_sharded(
             torch.Generator().manual_seed(args.seed), ds.X, C, spill_mode="soar",
             n_spills=2, lam=1.0, anisotropic_T=ANISO_T, rerank="int8", pq_subspaces=M,
@@ -2485,7 +2501,7 @@ def ann_phases(args):
     del aidx, aplain, a, srt
 
     (bidx, bsum), blaunch = drive(
-        wrappers, ("lloyd_sweep", "soar_assign", "pq_score_probes"),
+        wrappers, ("lloyd_sweep", "soar_assign", "pq_score_probes", "kmeans_pp"),
         lambda: variant(lambda ph: build_ivf(
             torch.Generator().manual_seed(args.seed), ds.X, C, spill_mode="soar",
             n_spills=1, anisotropic_T=ANISO_T, rerank="f32", pq_subspaces=M,
@@ -3295,7 +3311,8 @@ def ann_phases(args):
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
-        msum, mlaunch = drive(wrappers, ("lloyd_sweep", "vq_assign", "soar_assign"),
+        msum, mlaunch = drive(wrappers, ("lloyd_sweep", "vq_assign", "soar_assign",
+                                         "kmeans_pp"),
                               lambda: knn_phase(tmp))
     path_launches.update(mlaunch)
     msum["launches"] = mlaunch
@@ -3495,7 +3512,7 @@ def ann_phases(args):
     with tempfile.TemporaryDirectory() as tmp:
         (ssum, (probe25, route16), shards), slaunch = drive(
             wrappers, ("pq_score_probes", "tree_route", "vq_assign", "soar_assign",
-                       "lloyd_sweep"), lambda: shard_phase(tmp))
+                       "lloyd_sweep", "kmeans_pp"), lambda: shard_phase(tmp))
     path_launches.update(slaunch)
     ssum["launches"] = slaunch
     torch.cuda.empty_cache()
@@ -3812,6 +3829,52 @@ def ann_phases(args):
                          "bound_ms": b3[0], "bound_by": b3[1], "share": b3[0] / ms3,
                          "max_abs_err": float((g3s[fin3] - w3s[fin3]).abs().max())})
     del g3s, g3i, w3s, w3i
+
+    # kernel 7: every k-means++ pick of a seeding in one launch, at the
+    # codebook's shape and at PQ's; small integer coordinates make every
+    # f32 dot exact, so the picks must be the plain loop's
+    def pp_case(m, n, d, c, seed, X=None):
+        g = torch.Generator().manual_seed(seed)
+        if X is None:
+            X = torch.randint(-8, 9, (m, n, d), generator=g).float().to(DEVICE)
+        return (X, torch.randint(0, n, (m,), generator=g).to(DEVICE),
+                torch.rand((c - 1, m), generator=g).to(DEVICE))
+
+    def pp_sizes(m, n, d, c):
+        """X, u and the centres moved once, first read once; 2 n d f32
+        operations a pick for the distances."""
+        return (m * n * d + m * c * d + (c - 1) * m) * 4 + m * 8, 2 * m * n * d * (c - 1)
+
+    pp = {}
+    for key, (m, n, d, c) in (("codebook", (1, 32_768, D, C)), ("pq", (M, 32_768, 2, 16))):
+        pargs = pp_case(m, n, d, c, args.seed + len(pp))
+        got, want = kmeans_pp(*pargs), ref.kmeans_pp_ref(*pargs)
+        assert torch.equal(got, want), f"kmeans_pp differs from its plain loop at {key}"
+        b_ms, b_by = bound(*pp_sizes(m, n, d, c))
+        ms = time_ms(lambda: kmeans_pp(*pargs))
+        pp[key] = {"shape": [m, n, d, c], "ms": ms, "bound_ms": b_ms,
+                   "max_abs_err": float((got - want).abs().max()),
+                   "bound_by": b_by, "share": b_ms / ms, "us_per_pick": ms * 1e3 / (c - 1),
+                   "plain_ms": time_ms(lambda: ref.kmeans_pp_ref(*pargs), 2)}
+    pargs = pp_case(1, 32_768, D, C, args.seed, Xt[None, :32_768])
+    got = kmeans_pp(*pargs)[0]
+    assert torch.equal(kmeans_pp(*pargs)[0], got), "kmeans_pp is not bitwise repeatable"
+    for i in range(0, C, 100):
+        assert bool((got[i:i + 100, None] == pargs[0]).all(-1).any(1).all()), \
+            "a kmeans_pp seed is not a row of the data"
+    assert got.unique(dim=0).shape[0] == C, "kmeans_pp picked a row twice"
+    dargs = pp_case(1, 32_768, 96, 32_768, args.seed + 2)
+    d_ms = time_ms(lambda: kmeans_pp(*dargs), 2)
+    d_b = bound(*pp_sizes(1, 32_768, 96, 32_768))
+    del dargs, got, pargs
+    cb = pp.pop("codebook")
+    record("kmeans_pp", "src/repro_torch/csrc/kmeans_pp.cu", "src/repro/core/kmeans.py:57",
+           cb.pop("max_abs_err"), cb.pop("ms"), cb.pop("plain_ms"), *pp_sizes(*cb["shape"]),
+           us_per_pick=cb["us_per_pick"], shape=cb["shape"], pq=pp["pq"],
+           c32k={"shape": [1, 32_768, 96, 32_768], "ms": d_ms, "bound_ms": d_b[0],
+                 "bound_by": d_b[1], "share": d_b[0] / d_ms,
+                 "us_per_pick": d_ms * 1e3 / 32_767})
+    del pp, cb
 
     # the build's plain-torch work at its shapes: one shard for the spill
     # columns, the training sample for the anisotropic steps, all rows for

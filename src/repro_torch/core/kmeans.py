@@ -6,7 +6,8 @@ candidates, Voronoi weights, weighted k-means++ and weighted Lloyd on the
 candidates). Training: full-batch Lloyd (the default), or mini-batch
 Lloyd (`batch_size=`, Sculley's per-centroid running-count rates); either
 may renormalize the centroids after every sweep (`spherical=`). Every
-sweep is one `lloyd_sweep` (the fused CUDA kernel on the card). The
+sweep is one `lloyd_sweep` (the fused CUDA kernel on the card), and
+k-means++'s picks one `kmeans_pp` launch (its seeding kernel). The
 unfused `lloyd_step` and the Euclidean assignments are kept as the JAX
 package keeps them.
 """
@@ -17,7 +18,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
+from repro_torch.kernels.kmeans_pp import kmeans_pp
 from repro_torch.kernels.lloyd import lloyd_sweep
+from repro_torch.kernels.ref import d2_draw as _d2_draw
 from repro_torch.spans import span
 from repro_torch.utils import pairwise_neg_sqdist_argmin, topk_first
 
@@ -29,56 +33,23 @@ class KMeansResult(NamedTuple):
     history: np.ndarray                    # per-iteration distortion
 
 
-def _d2_draw(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Inverse-CDF draws: for each row of weights (m, n) ≥ 0, an index i
-    with probability ∝ weights[i], from one uniform u (m,) in [0, 1).
-
-    The CDF is an integer one: each weight scaled to 2**40 of its row's
-    largest (less for n > 2**22, so the sum stays below 2**62) and
-    truncated, then an int64 cumsum. That sum is exact, so a seed draws
-    the same index on every run (`torch.cumsum` of floats on CUDA does not
-    promise that: its association follows the timing of its blocks, so two
-    builds of one shard could pick other seeds), and a zero weight is
-    never drawn. A row of zeros draws index 0."""
-    top = weights.amax(-1, keepdim=True)
-    scale = float(2 ** min(40, 62 - weights.shape[-1].bit_length()))
-    cdf = torch.cumsum((weights * (scale / torch.where(top > 0, top, 1.0))).to(torch.int64), -1)
-    total = cdf[:, -1:]
-    t = (u[:, None] * total.to(u.dtype)).to(torch.int64)
-    return torch.searchsorted(cdf, torch.minimum(t, total - 1) + 1)[:, 0]
-
-
 def kmeans_pp_init_batched(gen: torch.Generator, X: torch.Tensor,
                            c: int) -> torch.Tensor:
     """k-means++ seeding of m independent problems X (m, n, d) → (m, c, d).
 
-    Exact D² sampling by inverse CDF: one uniform per pick, an exact
-    integer CDF and searchsorted (`_d2_draw`); distances update through
-    ||x||² − 2⟨x, c_new⟩ + ||c_new||², one GEMV per pick. The random draws
-    are made up front on the host, so the c − 1 sequential picks never
-    wait for the device.
+    Exact D² sampling by inverse CDF: one uniform per pick and an exact
+    integer CDF (`_d2_draw`). The random draws are made up front on the
+    host; the c − 1 sequential picks run in one launch of the seeding
+    kernel on the card (`kernels/kmeans_pp.py`), in the plain loop on the
+    CPU. Counts `picks` ((c − 1)·m) into the innermost recording span
+    ("kmeans.seed", "pq.seed"); the kernel counts `fused_picks`.
     """
-    m, n, d = X.shape
+    m, n, _ = X.shape
     dev = X.device
     first = torch.randint(0, n, (m,), generator=gen).to(dev)
     u = torch.rand((max(c - 1, 0), m), generator=gen).to(device=dev, dtype=X.dtype)
-    xn = (X * X).sum(-1)                                      # (m, n)
-    rows = torch.arange(m, device=dev)
-    cents = torch.zeros((m, c, d), dtype=X.dtype, device=dev)
-
-    def dist_to(v):                                           # v (m, d)
-        dv = xn - 2.0 * torch.bmm(X, v[:, :, None])[..., 0] + (v * v).sum(-1)[:, None]
-        return dv.clamp(min=0.0)
-
-    nxt = X[rows, first]
-    cents[:, 0] = nxt
-    min_d = dist_to(nxt)
-    for i in range(1, c):
-        idx = _d2_draw(min_d, u[i - 1])
-        nxt = X[rows, idx]
-        cents[:, i] = nxt
-        min_d = torch.minimum(min_d, dist_to(nxt))
-    return cents
+    spans.count(picks=u.numel())
+    return kmeans_pp(X.contiguous(), first, u)
 
 
 def kmeans_pp_init(gen: torch.Generator, X: torch.Tensor, c: int) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of every CUDA kernel of the port.
 
 Counterparts of `repro/kernels/ref.py` plus the Lloyd sweep, the
-two-level route and the probe-id window scorer: each computes the same
+two-level route, the probe-id window scorer and k-means++ seeding (the
+pick loop and its integer-CDF draw): each computes the same
 function as its kernel, in tensor ops, on any device. The kernel
 wrappers take these for CPU tensors; the tests hold them against the JAX
 package, and `chip_smoke.py` holds the kernels against them on the card.
@@ -151,3 +152,54 @@ def tree_route_ref(Q: torch.Tensor, SC: torch.Tensor, CC: torch.Tensor,
         scores.append(torch.where(cid >= 0, sc, float("-inf")))
         ids.append(cid)
     return torch.cat(scores, -1), torch.cat(ids, -1).to(torch.int32)
+
+
+def d2_scale(n: int) -> float:
+    """The integer CDF's scale for rows of n weights: 2**40, less from
+    n = 2**22 on, so that n weights of at most the scale sum below 2**62."""
+    return float(2 ** min(40, 62 - n.bit_length()))
+
+
+def d2_draw(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF draws: for each row of weights (m, n) ≥ 0, an index i
+    with probability ∝ weights[i], from one uniform u (m,) in [0, 1).
+
+    The CDF is an integer one: each weight scaled to `d2_scale(n)` of its
+    row's largest and truncated, then an int64 cumsum. That sum is exact,
+    so a seed draws the same index on every run (`torch.cumsum` of floats
+    on CUDA does not promise that: its association follows the timing of
+    its blocks, so two builds of one shard could pick other seeds), and a
+    zero weight is never drawn. A row of zeros draws index 0."""
+    top = weights.amax(-1, keepdim=True)
+    scale = d2_scale(weights.shape[-1])
+    cdf = torch.cumsum((weights * (scale / torch.where(top > 0, top, 1.0))).to(torch.int64), -1)
+    total = cdf[:, -1:]
+    t = (u[:, None] * total.to(u.dtype)).to(torch.int64)
+    return torch.searchsorted(cdf, torch.minimum(t, total - 1) + 1)[:, 0]
+
+
+def kmeans_pp_ref(X: torch.Tensor, first: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """k-means++ seeding of m problems X (m, n, d) → centres (m, c, d), c =
+    len(u) + 1: row first[p] (m,) first, then pick i from the uniforms
+    u[i − 1] (c − 1, m) by an exact D² draw (`d2_draw`). Distances update
+    through ||x||² − 2⟨x, c_new⟩ + ||c_new||², one GEMV a pick."""
+    m, n, d = X.shape
+    c = u.shape[0] + 1
+    dev = X.device
+    xn = (X * X).sum(-1)                                      # (m, n)
+    rows = torch.arange(m, device=dev)
+    cents = torch.zeros((m, c, d), dtype=X.dtype, device=dev)
+
+    def dist_to(v):                                           # v (m, d)
+        dv = xn - 2.0 * torch.bmm(X, v[:, :, None])[..., 0] + (v * v).sum(-1)[:, None]
+        return dv.clamp(min=0.0)
+
+    nxt = X[rows, first]
+    cents[:, 0] = nxt
+    min_d = dist_to(nxt)
+    for i in range(1, c):
+        idx = d2_draw(min_d, u[i - 1])
+        nxt = X[rows, idx]
+        cents[:, i] = nxt
+        min_d = torch.minimum(min_d, dist_to(nxt))
+    return cents

@@ -18,9 +18,10 @@ While it records, each span is kept as a `Span`:
 - `request`: the id of the outermost span, shared by every span of one
   search request or one build;
 - `counts`: the keyword counts given when the span was made or to
-  `count()` while it ran. A tensor count is kept as the sum of its
-  elements, on its device, and read by `spans()`, so counting on the
-  device never waits for it.
+  `count()` while it ran (the span's, or the module's, which counts into
+  the span innermost on the calling thread). A tensor count is kept as
+  the sum of its elements, on its device, and read by `spans()`, so
+  counting on the device never waits for it.
 
 Each recording span is also an event of the profiler's own trace (a
 function-scope record, as an operator's), so an exported chrome trace
@@ -99,6 +100,16 @@ def span(name: str, **counts):
     if not _enabled():
         return _OFF
     return _Span(name, counts, True)
+
+
+def count(**counts) -> None:
+    """Add counts to the span innermost on this thread while it records
+    (nothing otherwise): code deep inside a phase counts into the phase's
+    span without being handed it."""
+    if _enabled():
+        stack = _stack()
+        if stack:
+            stack[-1].count(**counts)
 
 
 def timed(name: str, timings: Optional[dict], key: str,

@@ -44,7 +44,9 @@ from repro_torch.core.search import search_numpy  # noqa: E402
 from repro_torch.core.soar import naive_spill_assign  # noqa: E402
 from repro_torch.data.vectors import make_manifold  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import kmeans_pp as kmeans_pp_mod  # noqa: E402
 from repro_torch.kernels import lloyd as lloyd_mod  # noqa: E402
+from repro_torch.kernels.kmeans_pp import kmeans_pp  # noqa: E402
 from repro_torch.kernels.lloyd import lloyd_sweep  # noqa: E402
 from repro_torch.kernels.pq_score import pq_score, pq_score_probes  # noqa: E402
 from repro_torch.kernels.soar_assign import assign_fused, soar_assign  # noqa: E402
@@ -656,6 +658,85 @@ def test_d2_draw_on_card_equals_cpu_and_seeding_repeats(cuda):
     for _ in range(2):
         assert torch.equal(kmeans.kmeans_pp_init(torch.Generator().manual_seed(1), X, 2500),
                            first)
+
+
+def _int_pp_case(m, n, d, c, seed=0):
+    """Small integer coordinates, so that every f32 dot and norm is exact
+    in any order: the kernel and the plain loop then see the same
+    distances, and must pick the same rows."""
+    g = torch.Generator().manual_seed(seed)
+    X = torch.randint(-8, 9, (m, n, d), generator=g).float()
+    return X, torch.randint(0, n, (m,), generator=g), torch.rand((c - 1, m), generator=g)
+
+
+@pytest.mark.parametrize("m,n,d,c", [(1, 32_768, 100, 2000), (1, 4096, 100, 4096),
+                                     (50, 32_768, 2, 16)])
+def test_kmeans_pp_kernel_picks_the_plain_loops_rows(cuda, monkeypatch, m, n, d, c):
+    """The seeding kernel's centres equal the plain loop's bit for bit, in
+    one launch, on the whole card (m 1), with every row picked (n = c),
+    and for PQ's 50 small problems; and on every other path the kernel
+    has at the shape: teams of one block, rows read from device memory,
+    norms and distances kept in device memory."""
+    X, first, u = _int_pp_case(m, n, d, c)
+    want = ref.kmeans_pp_ref(X, first, u)
+    args = (X.to(cuda), first.to(cuda), u.to(cuda))
+    n0 = kmeans_pp.launches
+    assert torch.equal(kmeans_pp(*args).cpu(), want)
+    assert kmeans_pp.launches == n0 + 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    own = kmeans_pp_mod.plan(m, n, d, sms)
+    one = kmeans_pp_mod.plan(m, n, d, min(m, sms))
+    paths = [one, own._replace(xmode=kmeans_pp_mod.X_GLOBAL, smem=16 * own.stride4 + 8 * own.rows),
+             own._replace(xmode=kmeans_pp_mod.X_GLOBAL, state_shared=0, smem=16 * own.stride4)]
+    for p in paths:
+        monkeypatch.setattr(kmeans_pp_mod, "plan", lambda *a, p=p: p)
+        assert torch.equal(kmeans_pp(*args).cpu(), want), p
+
+
+def test_kmeans_pp_kernel_repeats_and_seeds_as_well_as_the_plain_loop(cuda, monkeypatch):
+    """On manifold data a seeding repeats bit for bit, its seeds are
+    distinct rows of the data, it leaves the generator where the CPU's
+    plain loop does, and over 5 seeds the distortion after 15 Lloyd
+    sweeps is within 1% of the plain loop's (on the card: the same data,
+    another order of the f32 sums)."""
+    X = make_manifold(5, 40_000, 100, nq=1, device=cuda).X
+    Xs = X[:32_768].contiguous()
+    a = kmeans.kmeans_pp_init(torch.Generator().manual_seed(1), Xs, 1000)
+    gen = torch.Generator().manual_seed(1)
+    assert torch.equal(kmeans.kmeans_pp_init(gen, Xs, 1000), a)
+    rows = {r.tobytes() for r in Xs.cpu().numpy()}
+    seeds = [r.tobytes() for r in a.cpu().numpy()]
+    assert set(seeds) <= rows and len(set(seeds)) == 1000
+    gcpu = torch.Generator().manual_seed(1)
+    kmeans.kmeans_pp_init(gcpu, Xs[:, :4].cpu(), 1000)
+    assert torch.equal(gen.get_state(), gcpu.get_state())
+
+    def distortion():
+        return [float(train_kmeans(torch.Generator().manual_seed(s), X, 500,
+                                   iters=15).distortion) for s in range(5)]
+    fused = distortion()
+    monkeypatch.setattr(kmeans, "kmeans_pp", ref.kmeans_pp_ref)
+    loop = distortion()
+    assert abs(np.mean(fused) / np.mean(loop) - 1.0) <= 0.01, (fused, loop)
+
+
+def test_kmeans_pp_seed_spans_count_fused_picks(cuda):
+    """On the card every k-means++ pick of a build's codebook and PQ
+    seeding is made inside the kernel, one launch a seeding:
+    `fused_picks` equals `picks` on "kmeans.seed" and "pq.seed"."""
+    from repro_torch import spans
+    from repro_torch.quant.pq import train_pq
+    X = make_manifold(6, 40_000, 100, nq=1, device=cuda).X
+    spans.reset()
+    n0 = kmeans_pp.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        train_kmeans(torch.Generator().manual_seed(0), X, 200, iters=2)
+        train_pq(torch.Generator().manual_seed(0), X, 50, iters=2)
+    seeds = {s.name: s.counts for s in spans.spans() if s.name.endswith(".seed")}
+    spans.reset()
+    assert kmeans_pp.launches == n0 + 2
+    assert seeds == {"kmeans.seed": {"picks": 199, "fused_picks": 199},
+                     "pq.seed": {"picks": 15 * 50, "fused_picks": 15 * 50}}
 
 
 # ------------------------------------------------------------ serving slice

@@ -19,6 +19,8 @@ from repro.kernels.soar_assign import _fused_assign_gemm as jax_fused_gemm  # no
 from repro.kernels.soar_assign import assign_fused as jax_assign_fused  # noqa: E402
 
 from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import kmeans_pp as kmeans_pp_mod  # noqa: E402
+from repro_torch.kernels.kmeans_pp import kmeans_pp  # noqa: E402
 from repro_torch.kernels import ops as torch_ops  # noqa: E402
 from repro_torch.kernels.lloyd import lloyd_sweep  # noqa: E402
 from repro_torch.kernels.pq_score import pq_score, pq_score_probes  # noqa: E402
@@ -198,7 +200,8 @@ def test_lloyd_sweep_keeps_empty_centroid():
 # ------------------------------------------------------------ the wrappers
 def _launch_counts():
     return (pq_score.launches, pq_score_probes.launches, vq_assign.launches,
-            soar_assign.launches, lloyd_sweep.launches, tree_route.launches)
+            soar_assign.launches, lloyd_sweep.launches, tree_route.launches,
+            kmeans_pp.launches)
 
 
 def test_cpu_path_launches_nothing():
@@ -209,10 +212,12 @@ def test_cpu_path_launches_nothing():
     pq_score_probes(*(_t(a) for a in probe_case(2, 3, 4, 5, 3)))
     pq_score(_t(_normal(53, 2, 3, 16)), torch.zeros((5, 3), dtype=torch.uint8))
     tree_route(X, C, C[:, None].contiguous(), torch.arange(6, dtype=torch.int32)[:, None], 2)
+    kmeans_pp(*_pp_case(2, 40, 8, 6))
     assert _launch_counts() == before
 
 
-@pytest.mark.parametrize("which", ["pq", "vq", "soar", "fused", "lloyd", "dense", "tree"])
+@pytest.mark.parametrize("which", ["pq", "vq", "soar", "fused", "lloyd", "dense", "tree",
+                                   "kmeans_pp"])
 def test_non_cpu_tensor_never_falls_back(which):
     """A tensor that is not on the CPU must launch the kernel or raise;
     a meta tensor can do neither, so the wrapper must raise. The probe
@@ -237,6 +242,9 @@ def test_non_cpu_tensor_never_falls_back(which):
                                   torch.empty((5, 2), dtype=torch.uint8, device="meta")),
         "tree": lambda: tree_route(X, C, torch.empty((3, 2, 4), device="meta"),
                                    torch.empty((3, 2), dtype=torch.int32, device="meta"), 1),
+        "kmeans_pp": lambda: kmeans_pp(torch.zeros((1, 8, 4)),
+                                       torch.empty(1, dtype=torch.int64, device="meta"),
+                                       torch.empty((3, 1), device="meta")),
     }
     with pytest.raises(ValueError, match="CUDA tensors"):
         calls[which]()
@@ -254,4 +262,93 @@ def test_library_name_follows_sources():
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libreprotorch_")
     assert {f.name for f in _build.CSRC.glob("*.cu")} == {
         "pq_score.cu", "pq_score_probes.cu", "vq_assign.cu", "soar_assign.cu",
-        "lloyd.cu", "tree_route.cu"}
+        "lloyd.cu", "tree_route.cu", "kmeans_pp.cu"}
+
+
+# ------------------------------------------------ k-means++ seeding kernel
+def _pp_case(m, n, d, c, seed=0):
+    """Small integer coordinates (every f32 dot and norm exact in any
+    order), each problem's first row and the (c − 1, m) uniforms."""
+    g = torch.Generator().manual_seed(seed)
+    X = torch.randint(-8, 9, (m, n, d), generator=g).float()
+    return X, torch.randint(0, n, (m,), generator=g), torch.rand((c - 1, m), generator=g)
+
+
+def test_kmeans_pp_on_the_cpu_is_the_plain_loop():
+    """CPU tensors take the plain pick loop: the first row first, then
+    distinct rows of each problem while any distance is left."""
+    X, first, u = _pp_case(3, 500, 6, 40)
+    got = kmeans_pp(X, first, u)
+    assert got.shape == (3, 40, 6)
+    assert torch.equal(got, ref.kmeans_pp_ref(X, first, u))
+    assert torch.equal(got[:, 0], X[torch.arange(3), first])
+    for p in range(3):
+        rows = {r.numpy().tobytes() for r in X[p]}
+        picked = [r.numpy().tobytes() for r in got[p]]
+        assert set(picked) <= rows and len(set(picked)) == 40
+
+
+@pytest.mark.parametrize("bad", ["X dtype", "first dtype", "X rank", "u width", "strided",
+                                 "no rows"])
+def test_kmeans_pp_rejects_what_the_kernel_does_not_take(bad):
+    """The launch path checks its arguments before it takes a pointer."""
+    X, first, u = _pp_case(2, 64, 4, 5)
+    args = {"X dtype": (X.double(), first, u), "first dtype": (X, first.int(), u),
+            "X rank": (X[0], first, u), "u width": (X, first, u[:, :1].contiguous()),
+            "strided": (X[:, ::2], first, u), "no rows": (X[:, :0].contiguous(), first, u)}
+    with pytest.raises(ValueError):
+        kmeans_pp_mod._launch(*args[bad])
+
+
+def test_kmeans_pp_on_meta_tensors_is_the_plain_loop():
+    """A dry run's meta tensors take the plain loop: the centres' shape,
+    no launch."""
+    n0 = kmeans_pp.launches
+    out = kmeans_pp(torch.empty((2, 100, 8), device="meta"),
+                    torch.empty(2, dtype=torch.int64, device="meta"),
+                    torch.empty((15, 2), device="meta"))
+    assert out.device.type == "meta" and out.shape == (2, 16, 8)
+    assert kmeans_pp.launches == n0
+
+
+@pytest.mark.parametrize("n,scale", [(1, 2.0 ** 40), (2 ** 22 - 1, 2.0 ** 40),
+                                     (2 ** 22, 2.0 ** 39), (2 ** 22 + 1, 2.0 ** 39)])
+def test_d2_scale_keeps_the_integer_cdf_below_2_62(n, scale):
+    """The scale the plain draw and the kernel share: 2**40 of a row's
+    largest weight, halved from n = 2**22 on, so n truncated weights sum
+    below 2**62."""
+    assert ref.d2_scale(n) == scale
+    assert n * scale * (1 + 2.0 ** -23) < 2.0 ** 62
+
+
+@pytest.mark.parametrize("m,n,d", [(1, 32_768, 100), (1, 32_768, 96), (50, 32_768, 2),
+                                   (1, 4096, 100), (1, 1_048_576, 96), (300, 50_000, 2),
+                                   (1, 1, 1), (7, 100, 3), (1, 40, 5000)])
+def test_kmeans_pp_plan_fits_the_card(m, n, d):
+    """Every block of a team has rows, all blocks are resident at one an
+    SM, rows in shared memory are an odd number of float4s, and the
+    shared memory fits a block."""
+    p = kmeans_pp_mod.plan(m, n, d, 132)
+    assert p.teams == min(m, 132) and p.teams * p.blocks <= 132
+    assert p.blocks <= kmeans_pp_mod.THREADS
+    assert (p.blocks - 1) * p.rows < n <= p.blocks * p.rows
+    assert p.stride4 % 2 == 1 and 4 * p.stride4 >= d
+    assert 0 < p.smem <= kmeans_pp_mod.SMEM_LIMIT - kmeans_pp_mod.STATIC_SMEM
+    assert p.xmode in (kmeans_pp_mod.X_SHARED, kmeans_pp_mod.X_GLOBAL)
+
+
+def test_kmeans_pp_plan_follows_the_shape():
+    """One problem takes the whole card with its rows in shared memory;
+    PQ's 50 subspaces two blocks each; more problems than SMs a block
+    each, with their state in device memory once it outgrows the block."""
+    glove = kmeans_pp_mod.plan(1, 32_768, 100, 132)
+    assert (glove.teams, glove.blocks, glove.rows) == (1, 132, 249)
+    assert glove.xmode == kmeans_pp_mod.X_SHARED and glove.state_shared
+    pq = kmeans_pp_mod.plan(50, 32_768, 2, 132)
+    assert (pq.teams, pq.blocks, pq.xmode) == (50, 2, kmeans_pp_mod.X_GLOBAL)
+    many = kmeans_pp_mod.plan(300, 50_000, 2, 132)
+    assert (many.teams, many.blocks, many.state_shared) == (132, 1, 0)
+    big = kmeans_pp_mod.plan(1, 1_048_576, 96, 132)
+    assert big.xmode == kmeans_pp_mod.X_GLOBAL and big.state_shared
+    with pytest.raises(ValueError, match="shared memory"):
+        kmeans_pp_mod.plan(1, 100, 60_000, 132)

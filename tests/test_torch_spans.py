@@ -12,7 +12,9 @@ import torch
 
 from repro_torch import spans
 from repro_torch.core.build import build_ivf_sharded
+from repro_torch.core.kmeans import train_kmeans
 from repro_torch.data.vectors import make_manifold
+from repro_torch.quant.pq import train_pq
 from repro_torch.serve.api import SearchParams
 from repro_torch.serve.engine import AnnEngine
 from repro_torch.spans import span, timed
@@ -237,6 +239,34 @@ def test_build_timings_keep_their_keys_and_the_build_spans_appear(data):
     for name, key in (("build." + p, p) for p in PHASES):
         s = phases[name]
         assert (s.end_ns - s.start_ns) * 1e-9 >= t_on[key] * 0.5
+
+
+def test_count_adds_to_the_innermost_span_of_its_thread():
+    """`spans.count` counts into the span innermost on the calling thread
+    while a profiler records, and does nothing otherwise."""
+    spans.count(n=1)
+    with span("outer"):
+        spans.count(n=1)
+    assert spans.spans() == []
+    with profiling():
+        spans.count(stray=1)
+        with span("outer", a=1):
+            with span("inner"):
+                spans.count(n=2)
+            spans.count(m=3)
+    assert {s.name: s.counts for s in spans.spans()} == {"inner": {"n": 2},
+                                                         "outer": {"a": 1, "m": 3}}
+
+
+def test_seed_spans_count_their_picks(data):
+    """"kmeans.seed" and "pq.seed" count the k-means++ picks; on the CPU
+    the plain loop makes them, so none is a fused one (the kernel's)."""
+    X, _ = data
+    with profiling():
+        train_kmeans(torch.Generator().manual_seed(0), X, 24, iters=2)
+        train_pq(torch.Generator().manual_seed(0), X, 8, iters=2)
+    seeds = {s.name: s.counts for s in spans.spans() if s.name.endswith(".seed")}
+    assert seeds == {"kmeans.seed": {"picks": 23}, "pq.seed": {"picks": 15 * 8}}
 
 
 def test_the_buffer_is_bounded_and_counts_what_it_drops(monkeypatch):
