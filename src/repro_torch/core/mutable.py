@@ -461,7 +461,7 @@ class MutableIVF:
             if not self.n_soft_deleted:
                 return None, escalate
             return (self.standing_filter(),
-                    escalate and self.standing_filter_thin)
+                    escalate if self.standing_filter_thin else False)
         return self.filter_bitmap(mask=mask, ids=ids), escalate
 
     def standing_filter(self) -> torch.Tensor:

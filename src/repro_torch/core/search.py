@@ -13,11 +13,18 @@ rerank_budget → exact f32 rerank → top final_k. No intermediate scales
 with the database size n. Each tile of `search_jit_batched` is the span
 "search.tile", its stages its children "search.route", "search.gather",
 "search.lut", "search.score", "search.dedup", "search.rerank" and, when
-the filtered second pass runs, "search.escalate" (`repro_torch.spans`).
+a filtered search escalates, "search.escalate" (`repro_torch.spans`).
 
-A filter is an (n,) uint8 bitmap over point ids, gathered per window;
-with `escalate`, a second pass one router-escalation step up backs rows
-whose first-pass window was thin.
+A filter is an (n,) uint8 bitmap over point ids. With `escalate` True or
+False it is gathered per window, and True adds a second pass one
+router-escalation step up for rows whose first-pass window was thin. With
+`escalate="budget"` (ESCALATE_BUDGET) the index is first cut to the
+filter's eligible slots (`filtered_pack`), so no ineligible slot is
+scored, deduped or reranked, and each tile walks its thin rows, and only
+those, up the router's escalation steps until each has as many unique
+eligible candidates as the stage budget (capped at the filter's
+population) or the router is exhausted: the host engine's rule, on the
+device, tile by tile.
 
 The host engine gathers every probed partition's CSR segment for the
 whole batch, dedups per (query, id) by sorts and reranks; it runs in
@@ -28,7 +35,7 @@ find; there is no jit here, PyTorch runs eagerly.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,10 +45,11 @@ from repro_torch.core.router import FlatRouter, check_query_dim
 from repro_torch.kernels.pq_score import pq_score_probes
 from repro_torch.quant.int8 import int8_dequantize
 from repro_torch.quant.pq import PQCodebook, pq_lut
-from repro_torch.spans import span
+from repro_torch.spans import count, recording, span
 from repro_torch.utils import as_tensor, topk_first
 
 _NEG_INF = float("-inf")
+ESCALATE_BUDGET = "budget"      # `escalate`: walk thin rows to the stage budget
 
 
 class PackedIVF(NamedTuple):
@@ -152,18 +160,23 @@ def _pad_topk(ids: torch.Tensor, vals: torch.Tensor, k: int):
 
 def _search_pass(packed: PackedIVF, Q: torch.Tensor, router, top_t: int,
                  final_k: int, rerank_budget: int, multiplicity: int = 2,
-                 filter: Optional[torch.Tensor] = None):
+                 filter: Optional[torch.Tensor] = None, route=None,
+                 survivors: bool = False):
     """One fixed-top_t candidate-local pass → (ids, scores (nq, final_k),
     surviving).
 
     Every width derives from the probe output, which a tree router may
     return narrower than top_t. With a filter, filtered candidates become
-    the -1 padding sentinel before dedup, and `surviving` (else None)
-    counts the unique surviving candidates, capped at the stage budget
-    (rerank_budget with PQ, else final_k): the escalation signal.
+    the -1 padding sentinel before dedup, and `surviving` (else None,
+    unless `survivors`) counts the unique surviving candidates, capped at
+    the stage budget (rerank_budget with PQ, else final_k): the escalation
+    signal. route: the router's (scores, parts) when already taken.
     """
-    with span("search.route"):
-        psc, parts = router.route(Q, top_t)             # (nq, t)
+    if route is None:
+        with span("search.route"):
+            route = router.route(Q, top_t)
+    psc, parts = route                                  # (nq, t)
+    survivors = survivors or filter is not None
     with span("search.gather"):
         ids = packed.part_ids[parts]                    # (nq, t, pmax)
         nq, t, pmax = ids.shape
@@ -180,7 +193,7 @@ def _search_pass(packed: PackedIVF, Q: torch.Tensor, router, top_t: int,
         with span("search.dedup"):
             di, dv = _pad_topk(*dedup_topk_window(ids, exact, final_k, multiplicity),
                                final_k)
-            if filter is not None:
+            if survivors:
                 surviving = torch.isfinite(dv).sum(-1)
         return di, dv, surviving
     with span("search.lut"):
@@ -192,7 +205,7 @@ def _search_pass(packed: PackedIVF, Q: torch.Tensor, router, top_t: int,
         approx = approx.masked_fill_(ids < 0, _NEG_INF)
     with span("search.dedup"):
         bi, bv = dedup_topk_window(ids, approx, rerank_budget, multiplicity)
-        if filter is not None:
+        if survivors:
             surviving = torch.isfinite(bv).sum(-1)
     with span("search.rerank"):
         exact = torch.einsum("qbd,qd->qb",
@@ -230,6 +243,111 @@ def _search_block(packed: PackedIVF, Q: torch.Tensor, top_t: int, final_k: int,
         return torch.where(need, ids2, ids1), torch.where(need, vals2, vals1)
 
 
+class _Subset(NamedTuple):
+    """A filtered search's index, cut once a call (`_subset`)."""
+    packed: PackedIVF        # the eligible slots alone (`filtered_pack`)
+    extent: torch.Tensor     # (c,) the whole index's slot extents
+    thresh: torch.Tensor     # 0-dim: min(stage budget, eligible population)
+
+
+def filtered_pack(packed: PackedIVF, bits: torch.Tensor) -> Tuple[PackedIVF, torch.Tensor]:
+    """The packed index cut to a filter's eligible slots → (packed,
+    population).
+
+    Each partition keeps the slots whose id the (n,) uint8 bitmap passes,
+    in slot order, at the left of a row as wide as the most any partition
+    keeps (at least 1); its size and extent are that count. Every slot of
+    the result is eligible, so a search over it scores, dedups and reranks
+    none that is not. population: the eligible ids the index holds (0-dim
+    int64 on the device)."""
+    ids = packed.part_ids
+    elig = (ids >= 0) & (bits[ids.clamp(min=0).to(torch.int64)] > 0)
+    part, slot = torch.nonzero(elig, as_tuple=True)
+    pos = (torch.cumsum(elig, 1) - 1)[part, slot]
+    counts = elig.sum(1).to(torch.int32)
+    width = max(int(counts.max()), 1) if counts.numel() else 1
+    eid = ids[part, slot]
+    out_ids = ids.new_full((ids.shape[0], width), -1)
+    out_ids[part, pos] = eid
+    codes = packed.part_codes
+    if codes is not None:
+        out_codes = codes.new_zeros((codes.shape[0], width, codes.shape[2]))
+        out_codes[part, pos] = codes[part, slot]
+        codes = out_codes
+    held = torch.zeros(bits.shape[0], dtype=torch.bool, device=ids.device)
+    held[eid.to(torch.int64)] = True
+    return (PackedIVF(packed.centroids, out_ids, codes, counts, counts, packed.pq,
+                      packed.rerank, packed.router), held.sum())
+
+
+def _subset(packed: PackedIVF, bits: torch.Tensor, final_k: int,
+            rerank_budget: int) -> _Subset:
+    sub, population = filtered_pack(packed, bits)
+    stage = rerank_budget if packed.part_codes is not None else final_k
+    return _Subset(sub, packed.extent, population.clamp(max=stage))
+
+
+def _budget_pass(sub: _Subset, Q: torch.Tensor, router, top_t: int, final_k: int,
+                 rerank_budget: int, multiplicity: int, rows: int):
+    """One pass over the eligible slots → (ids, scores, surviving), -1 /
+    -inf at the ranks past the unique candidates found. Counts
+    into the span innermost on this thread, over the first `rows` rows of
+    Q (the rest pad the tile): `probed` partitions, `gathered` slots of
+    the whole index under them and `scored`, the eligible ones among
+    them, which alone reach the scorer and the dedup."""
+    with span("search.route"):
+        psc, parts = router.route(Q, top_t)
+    if recording():
+        live = torch.isfinite(psc)
+        live[rows:] = False
+        count(probed=live, gathered=torch.where(live, sub.extent[parts], 0),
+              scored=torch.where(live, sub.packed.extent[parts], 0))
+    ids, vals, surv = _search_pass(sub.packed, Q, router, top_t, final_k, rerank_budget,
+                                   multiplicity, route=(psc, parts), survivors=True)
+    # a rank past the candidates found holds -1 (not a copy of a found id)
+    return torch.where(torch.isfinite(vals), ids, -1), vals, surv
+
+
+def _search_block_budget(sub: _Subset, Q: torch.Tensor, rows: int, top_t: int,
+                         final_k: int, rerank_budget: int, multiplicity: int = 2,
+                         router=None, tile_rows: Optional[int] = None):
+    """`escalate="budget"` over one tile whose first `rows` rows are queries
+    (the rest pad it and never escalate). A row is thin while its unique
+    eligible candidates are fewer than `sub.thresh`; each step takes the
+    thin rows alone one router-escalation step up (flat: doubled top_t;
+    tree: doubled top_t and t_route), run at `tile_rows` rows when given
+    so a query's bits do not depend on its tile mates, until no row is
+    thin or the router cannot escalate. A row's answer is that of the
+    pass at which it stopped. Each step is the span "search.escalate"
+    (counts `step`, `top_t`, `rows` entering, `kept`: rows that stop
+    there)."""
+    packed = sub.packed
+    if router is None:
+        router = packed.router if packed.router is not None \
+            else FlatRouter(packed.centroids)
+    check_query_dim(Q, packed.centroids.shape[1])
+    t = router.clamp(top_t)
+    ids, vals, surv = _budget_pass(sub, Q, router, t, final_k, rerank_budget,
+                                   multiplicity, rows)
+    thin = torch.nonzero(surv[:rows] < sub.thresh)[:, 0]
+    step = 0
+    while thin.numel() and router.can_escalate(t):
+        step += 1
+        router, t = router.escalated(t)
+        n = thin.numel()
+        with span("search.escalate", step=step, top_t=t, rows=n) as esc:
+            Qs = Q[thin]
+            if tile_rows is not None and n < tile_rows:
+                Qs = torch.cat([Qs, Qs.new_zeros((tile_rows - n, Qs.shape[1]))])
+            i2, v2, s2 = _budget_pass(sub, Qs, router, t, final_k, rerank_budget,
+                                      multiplicity, n)
+            ids[thin], vals[thin] = i2[:n], v2[:n]
+            still = s2[:n] < sub.thresh
+            esc.count(kept=~still if router.can_escalate(t) else n)
+            thin = thin[still]
+    return ids, vals
+
+
 def _filter_bits(packed: PackedIVF, filter) -> Optional[torch.Tensor]:
     """The (n,) filter as a uint8 tensor on the index's device (None stays
     None). A length other than the index's point count raises."""
@@ -245,18 +363,25 @@ def _filter_bits(packed: PackedIVF, filter) -> Optional[torch.Tensor]:
 
 def search_jit(packed: PackedIVF, Q, top_t: int, final_k: int,
                rerank_budget: int = 256, multiplicity: int = 2, filter=None,
-               escalate: bool = True, router=None):
+               escalate: Union[bool, str] = True, router=None):
     """Batched search of all of Q at once → (ids (nq, final_k) int32,
     scores (nq, final_k)). Q: (nq, d) numpy array or tensor.
 
     filter: optional (n,) bitmap over point ids (0 = drop), gathered per
-    candidate window; with `escalate` a second router-escalated pass backs
-    thin filtered windows. router: the probe router; default the one
+    candidate window; with `escalate` True a second router-escalated pass
+    backs thin filtered windows, and with "budget" thin rows walk up the
+    escalation steps to the stage budget over the eligible slots alone
+    (`_search_block_budget`). router: the probe router; default the one
     packed on the index, else the flat probe.
     """
     Q = as_tensor(Q, packed.centroids.device, torch.float32)
+    bits = _filter_bits(packed, filter)
+    if bits is not None and escalate == ESCALATE_BUDGET:
+        return _search_block_budget(_subset(packed, bits, final_k, rerank_budget), Q,
+                                    Q.shape[0], top_t, final_k, rerank_budget,
+                                    multiplicity, router)
     return _search_block(packed, Q, top_t, final_k, rerank_budget, multiplicity,
-                         _filter_bits(packed, filter), escalate, router)
+                         bits, escalate, router)
 
 
 def bq_bucket(nq: int, bq: int) -> int:
@@ -278,8 +403,9 @@ def pad_queries(Q: np.ndarray, bq_cap: int, multiple: int = 1):
 def search_jit_batched(packed: PackedIVF, Q, top_t: int, final_k: int,
                        rerank_budget: int = 256, bq: int = 128,
                        multiplicity: int = 2, filter=None,
-                       escalate: bool = True, router=None,
-                       tile_rows: Optional[int] = None):
+                       escalate: Union[bool, str] = True, router=None,
+                       tile_rows: Optional[int] = None,
+                       queries: Optional[int] = None):
     """`search_jit` over bq-query tiles, so live buffers stay
     O(bq·top_t·pmax) whatever nq. Every stage is query-local, so a tile's
     results do not depend on the others. `filter`/`escalate`/`router` as
@@ -291,7 +417,10 @@ def search_jit_batched(packed: PackedIVF, Q, top_t: int, final_k: int,
     other bits in a tile of 16 rows than in one of 8; at one fixed row
     count a query's results are the same bits whatever shares its tile
     (the serving engine's coalesced ≡ solo guarantee). None runs each
-    tile at its own size."""
+    tile at its own size.
+
+    queries: the rows of Q that are queries (default all); the rest pad
+    the batch, and under `escalate="budget"` never escalate."""
     Q = as_tensor(Q, packed.centroids.device, torch.float32)
     filter = _filter_bits(packed, filter)
     nq = Q.shape[0]
@@ -299,6 +428,10 @@ def search_jit_batched(packed: PackedIVF, Q, top_t: int, final_k: int,
         dev = Q.device
         return (torch.zeros((0, final_k), dtype=torch.int32, device=dev),
                 torch.zeros((0, final_k), dtype=torch.float32, device=dev))
+    sub = None
+    if filter is not None and escalate == ESCALATE_BUDGET:
+        sub = _subset(packed, filter, final_k, rerank_budget)
+    real = nq if queries is None else min(int(queries), nq)
     outs = []
     for i0 in range(0, nq, bq):
         with span("search.tile", tile=i0 // bq):
@@ -306,8 +439,13 @@ def search_jit_batched(packed: PackedIVF, Q, top_t: int, final_k: int,
             n = Qt.shape[0]
             if tile_rows is not None and n < tile_rows:
                 Qt = torch.cat([Qt, Qt.new_zeros((tile_rows - n, Qt.shape[1]))])
-            ids, vals = _search_block(packed, Qt, top_t, final_k, rerank_budget,
-                                      multiplicity, filter, escalate, router)
+            if sub is not None:
+                ids, vals = _search_block_budget(
+                    sub, Qt, max(0, min(n, real - i0)), top_t, final_k, rerank_budget,
+                    multiplicity, router, tile_rows)
+            else:
+                ids, vals = _search_block(packed, Qt, top_t, final_k, rerank_budget,
+                                          multiplicity, filter, escalate, router)
             outs.append((ids[:n], vals[:n]))
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
 

@@ -29,11 +29,12 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from repro_torch.core.router import check_query_dim
+from repro_torch.core.search import ESCALATE_BUDGET
 
 DEFAULT_K = 10
 DEFAULT_TOP_T = 8
@@ -48,6 +49,9 @@ DEFAULT_DEADLINE_MS = 50.0
 # shed) instead of a number nothing will ever exceed.
 MIN_DEADLINE_MS = 0.05
 MAX_DEADLINE_MS = 600_000.0
+# SearchParams.escalate: no escalation, one escalated second pass, or
+# thin rows walked up the router's escalation steps to the stage budget
+ESCALATE_MODES = (False, True, ESCALATE_BUDGET)
 
 
 class ServingError(RuntimeError):
@@ -171,6 +175,13 @@ class SearchParams:
     per-tenant filter registered with the front-end's TenantFilterBank —
     resolution happens at dispatch, against a device-cached bitmap.
 
+    `escalate` (ESCALATE_MODES) says what a filtered search does for a
+    query whose filtered window is thin: False nothing; True one second
+    pass one router-escalation step up; "budget" walks it up the steps,
+    on the device, until it holds as many unique eligible candidates as
+    the stage budget (capped at the filter's population) or the router is
+    exhausted (DESIGN.md §3.9).
+
     `deadline_ms` is the front-end batching budget: the micro-batcher
     flushes a pending batch no later than half the oldest request's
     deadline (DESIGN.md §3.12). Direct engine calls ignore it.
@@ -182,7 +193,7 @@ class SearchParams:
     filter_mask: Optional[np.ndarray] = None
     recency: Optional[int] = None
     segment: Optional[int] = None
-    escalate: bool = True
+    escalate: Union[bool, str] = True
     sanitize: bool = False
     deadline_ms: Optional[float] = None
     tenant: Optional[str] = None
@@ -236,8 +247,13 @@ class SearchParams:
             raise ValueError(
                 f"recency must be a non-negative integer, "
                 f"got {self.recency!r}")
+        esc = self.escalate
+        if isinstance(esc, (bool, np.bool_)):
+            esc = bool(esc)
+        elif not (isinstance(esc, str) and esc in ESCALATE_MODES):
+            raise ValueError(f"escalate must be one of {ESCALATE_MODES}, got {esc!r}")
         return dataclasses.replace(self, k=k, top_t=top_t, rerank_budget=rb,
-                                   deadline_ms=dl)
+                                   deadline_ms=dl, escalate=esc)
 
     # ------------------------------------------------------- batching key
     @property

@@ -160,7 +160,7 @@ class AnnEngine:
         return self.index.remove(ids, hard=hard)
 
     def search(self, Q, k: int = 10, top_t: Optional[int] = None,
-               filter_ids=None, filter_mask=None, escalate: bool = True,
+               filter_ids=None, filter_mask=None, escalate=True,
                sanitize: bool = False):
         """(nq, d) queries → (ids (nq, k) int32, scores (nq, k)), numpy.
 
@@ -189,7 +189,8 @@ class AnnEngine:
         (coalesced ≡ solo). `_filter_dev` is the front-end's seam: a
         pre-composed device uint8 bitmap at the capacity width (tenant ∧
         alive, cached by its TenantFilterBank) that replaces
-        `serving_filter`; it escalates as `params.escalate` says.
+        `serving_filter`; it escalates as `params.escalate` says (under
+        "budget" the pad rows never escalate).
         `engine_us` runs from the snapshot to the results on the host,
         whose copy waits for the device.
 
@@ -229,7 +230,7 @@ class AnnEngine:
                 top_t=clamp_top_t(p.top_t, self.index.centroids.shape[0]),
                 final_k=p.k, rerank_budget=max(p.rerank_budget, p.k),
                 bq=bq, multiplicity=1 + max(self.index.n_spills, 1),
-                filter=filt, escalate=escalate, tile_rows=self.bq)
+                filter=filt, escalate=escalate, tile_rows=self.bq, queries=nq)
             with span("engine.copy_out"):
                 ids, vals = ids[:nq].cpu().numpy(), vals[:nq].cpu().numpy()
             return SearchResult(

@@ -741,14 +741,14 @@ class ServingFrontend:
         Qp, nq, bq = pad_queries(Q, eng.bq, multiple=R)
         top_t = clamp_top_t(p.top_t, eng.index.centroids.shape[0])
         mult = 1 + max(eng.index.n_spills, 1)
-        key = (top_t, p.k, max(p.rerank_budget, p.k), mult, bool(escalate),
+        key = (top_t, p.k, max(p.rerank_budget, p.k), mult, escalate,
                filt is not None, tuple(devs), bq)
         fn = self._rep_cache.get(key)
         if fn is None:
             fn = make_replicated_search(
                 devs, top_t=top_t, final_k=p.k,
                 rerank_budget=max(p.rerank_budget, p.k), multiplicity=mult,
-                with_filter=filt is not None, escalate=bool(escalate),
+                with_filter=filt is not None, escalate=escalate,
                 bq=bq, tile_rows=eng.bq)
             self._rep_cache[key] = fn
         ids, vals = fn(eng.index.pack(), Qp,

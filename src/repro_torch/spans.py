@@ -102,6 +102,12 @@ def span(name: str, **counts):
     return _Span(name, counts, True)
 
 
+def recording() -> bool:
+    """Whether spans record on this thread (a profiler runs): counts that
+    cost work to make are made only then."""
+    return _enabled()
+
+
 def count(**counts) -> None:
     """Add counts to the span innermost on this thread while it records
     (nothing otherwise): code deep inside a phase counts into the phase's

@@ -31,7 +31,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import convert  # noqa: E402
+from repro_torch import convert, spans  # noqa: E402
 from repro_torch.ckpt import load_snapshot, save_snapshot  # noqa: E402
 from repro_torch.core import (build_ivf, build_ivf_sharded, kmr_curve,  # noqa: E402
                               pack_ivf, rank_statistics, recall_at_k,
@@ -62,6 +62,7 @@ from repro_torch.serve.engine import AnnEngine  # noqa: E402
 from repro_torch.serve.frontend import ServingFrontend, TenantFilterBank  # noqa: E402
 from repro_torch.serve.knn_memory import KNNMemory  # noqa: E402
 
+import filtered_ref as fr  # noqa: E402
 from torch_recall import assert_recall_means_close  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -534,6 +535,52 @@ def test_tree_filtered_slice_on_card_matches_cpu(cuda):
     r_card = recall_at_k(search_jit_batched(pack_ivf(card), ds.Q, **kw)[0].cpu(), gt, 10)
     r_cpu = recall_at_k(search_jit_batched(pack_ivf(cpu), ds.Q, **kw)[0], gt, 10)
     assert abs(r_card - r_cpu) <= 0.05, (r_card, r_cpu)
+
+
+@pytest.mark.parametrize("selectivity", [0.01, 0.001])
+def test_budget_filtered_search_on_card_matches_cpu(cuda, selectivity):
+    """`escalate="budget"` on a glove-shaped slice (d 100, m 50, c 120):
+    the card's answers equal the CPU's and the plain reference's
+    (tests/filtered_ref.py), two card runs give the same bits, and the
+    counters add up: `scored` is the eligible slots under the partitions
+    each query probed in each pass, at most `gathered`, their slots."""
+    ds = make_manifold(0, 60_000, 100, nq=300, device="cpu")
+    card = build_ivf_sharded(torch.Generator().manual_seed(0), ds.X.to(cuda), 120,
+                             pq_subspaces=50, device=cuda)
+    cpu = _to(card, "cpu")
+    bits = (torch.rand(60_000, generator=torch.Generator().manual_seed(1))
+            < selectivity).to(torch.uint8)
+    kw = dict(top_t=8, final_k=10, rerank_budget=128, bq=128, tile_rows=128, filter=bits,
+              escalate="budget")
+    packed_cpu, packed_card = pack_ivf(cpu), pack_ivf(card)
+    ids0, s0 = search_jit_batched(packed_cpu, ds.Q, **kw)
+    spans.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        ids1, s1 = search_jit_batched(packed_card, ds.Q.to(cuda), **kw)
+    recs = spans.spans()
+    spans.reset()
+    ids2, s2 = search_jit_batched(packed_card, ds.Q.to(cuda), **kw)
+    assert torch.equal(ids1, ids2) and torch.equal(s1, s2)
+    same = (ids1.cpu() == ids0).numpy()
+    assert same.mean() >= 0.995
+    np.testing.assert_allclose(s1.cpu().numpy()[same], s0.numpy()[same], rtol=1e-5)
+    got = ids1.cpu()
+    assert bool((bits[got[got >= 0].long()] > 0).all())
+    ix = fr.Index(packed_cpu.centroids, packed_cpu.part_ids, packed_cpu.part_codes,
+                  packed_cpu.pq.centers, packed_cpu.rerank)
+    ref = fr.search(ix, ds.Q, bits, top_t=8, k=10, budget=128)
+    assert (got.long() == ref.ids).float().mean() >= 0.995
+    total = {k: sum(s.counts.get(k, 0) for s in recs) for k in ("probed", "gathered", "scored")}
+    part_ids = packed_cpu.part_ids
+    elig = ((part_ids >= 0) & (bits[part_ids.clamp(min=0).long()] > 0)).sum(1)
+    want = dict(probed=0, gathered=0, scored=0)
+    for st in range(int(ref.steps.max()) + 1):
+        rows = ref.steps >= st
+        parts = torch.topk(ds.Q[rows] @ packed_cpu.centroids.T, min(8 << st, 120)).indices
+        want["probed"] += parts.numel()
+        want["gathered"] += int(packed_cpu.extent[parts].sum())
+        want["scored"] += int(elig[parts].sum())
+    assert total == want and total["scored"] < total["gathered"]
 
 
 # ------------------------------------------------- the rest of the build

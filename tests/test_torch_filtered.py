@@ -156,6 +156,21 @@ def test_filtered_exact_window_matches_jax(data):
     assert bits[got.numpy()[got.numpy() >= 0]].all()
 
 
+@pytest.mark.parametrize("selectivity", [0.01, 0.002])
+def test_budget_mode_matches_the_jax_host_engine(jax_index, packs, data, selectivity):
+    """`escalate="budget"` on the device, tile by tile, against JAX's host
+    engine `search_numpy(filter_mask=, escalate=True)`, which walks thin
+    queries up the same escalation steps to min(budget, population)."""
+    bits = _bitmap(selectivity)
+    want, _ = jax_search.search_numpy(jax_index, data[1], top_t=TOP_T, final_k=K,
+                                      rerank_budget=BUDGET, filter_mask=bits, escalate=True)
+    got, _ = search_jit_batched(packs[1], data[1], top_t=TOP_T, final_k=K,
+                                rerank_budget=BUDGET, bq=BQ, tile_rows=BQ, filter=bits,
+                                escalate="budget")
+    assert (got.numpy() == np.asarray(want)).mean() >= 0.995
+    assert bits[got.numpy()[got.numpy() >= 0]].all()
+
+
 @pytest.mark.parametrize("length", [N - 1, N + 5])
 def test_filter_of_the_wrong_length_raises(packs, data, length):
     with pytest.raises(ValueError, match="bitmap over the index's points"):

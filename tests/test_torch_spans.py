@@ -207,6 +207,37 @@ def test_escalation_is_a_span_with_its_counts(engine, data):
     assert {s.name for s in inner} == TILE_STAGES
 
 
+def test_each_budget_step_is_a_span_with_its_counts(engine, data):
+    """`escalate="budget"`: one "search.escalate" span a step, its top_t
+    doubled each step from the engine's 6, the rows entering a step those
+    that did not stop at the one before, and the tile's and each step's
+    counters (probed partitions, the slots under them, the eligible ones
+    scored)."""
+    _, Q = data
+    few = np.arange(0, 4000, 100)            # 40 ids of 4,000
+    with profiling():
+        r = engine.search_request(Q[:16].numpy(), SearchParams(k=10, filter_ids=few,
+                                                               escalate="budget"))
+    recs = spans.spans()
+    esc = sorted((s for s in recs if s.name == "search.escalate"),
+                 key=lambda s: s.counts["step"])
+    assert r.escalated and esc
+    assert [s.counts["step"] for s in esc] == list(range(1, len(esc) + 1))
+    assert [s.counts["top_t"] for s in esc] == [min(6 << i, 24) for i in range(1, len(esc) + 1)]
+    assert esc[0].counts["rows"] <= 16
+    for a, b in zip(esc, esc[1:]):
+        assert b.counts["rows"] == a.counts["rows"] - a.counts["kept"]
+    assert esc[-1].counts["kept"] == esc[-1].counts["rows"]
+    (tile,) = [s for s in recs if s.name == "search.tile"]
+    for s in [tile] + esc:
+        assert all(isinstance(s.counts[k], int) for k in ("probed", "gathered", "scored"))
+        assert 0 < s.counts["scored"] < s.counts["gathered"]
+    assert tile.counts["probed"] == 16 * 6
+    for s in esc:
+        assert s.parent == tile.id and s.counts["probed"] == s.counts["rows"] * s.counts["top_t"]
+        assert {c.name for c in children(recs, s)} == TILE_STAGES
+
+
 def test_results_are_the_same_bits_with_the_profiler_on(engine, data):
     _, Q = data
     off = engine.search_request(Q.numpy(), SearchParams(k=10))
