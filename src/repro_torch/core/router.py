@@ -15,12 +15,13 @@ coarse score, so its candidates never surface.
 Each router also owns the clamp (`clamp`) and one step of the filtered
 search's escalation (`escalated`): flat doubles top_t; tree doubles both
 top_t and t_route, so escalation widens the reachable set, not only the
-cut within it.
+cut within it. `nested_steps` says whether the steps are prefixes of one
+route (flat: the probe widths of every step; tree: None).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -67,6 +68,17 @@ class FlatRouter:
     def escalated(self, top_t: int):
         """One escalation step: doubled top_t, same router."""
         return self, self.clamp(2 * top_t)
+
+    def nested_steps(self, top_t: int) -> List[int]:
+        """The probe widths of the escalation steps above top_t, in order.
+        Each step's probes are the first that many of one route:
+        `route(Q, w)` is `route(Q, w')` cut to w for any w ≤ w', the same
+        bits, since both are one stable sort of one product."""
+        widths = []
+        while self.can_escalate(top_t) and self.clamp(2 * top_t) > top_t:
+            top_t = self.clamp(2 * top_t)
+            widths.append(top_t)
+        return widths
 
     def probe_flops(self, top_t: int) -> int:
         """Per-query probe-stage multiply count."""
@@ -133,6 +145,11 @@ class TreeRouter:
         doubled t_route."""
         return (self.with_t_route(min(2 * self.eff_t_route, self.n_super)),
                 self.clamp(2 * top_t))
+
+    def nested_steps(self, top_t: int) -> None:
+        """None: a step widens the reachable set (t_route), so its probes
+        are not a prefix of the last step's route."""
+        return None
 
     def with_t_route(self, t_route: int) -> "TreeRouter":
         return TreeRouter(self.super_centroids, self.children,

@@ -20,11 +20,13 @@ False it is gathered per window, and True adds a second pass one
 router-escalation step up for rows whose first-pass window was thin. With
 `escalate="budget"` (ESCALATE_BUDGET) the index is first cut to the
 filter's eligible slots (`filtered_pack`), so no ineligible slot is
-scored, deduped or reranked, and each tile walks its thin rows, and only
+scored, deduped or reranked, and each tile takes its thin rows, and only
 those, up the router's escalation steps until each has as many unique
 eligible candidates as the stage budget (capped at the filter's
 population) or the router is exhausted: the host engine's rule, on the
-device, tile by tile.
+device, tile by tile. Where the steps are prefixes of one route (the
+flat router) one count settles each thin row's step and one pass runs a
+step present; else the rows walk up a pass a step.
 
 The host engine gathers every probed partition's CSR segment for the
 whole batch, dedups per (query, id) by sorts and reranks; it runs in
@@ -288,15 +290,18 @@ def _subset(packed: PackedIVF, bits: torch.Tensor, final_k: int,
 
 
 def _budget_pass(sub: _Subset, Q: torch.Tensor, router, top_t: int, final_k: int,
-                 rerank_budget: int, multiplicity: int, rows: int):
+                 rerank_budget: int, multiplicity: int, rows: int, route=None):
     """One pass over the eligible slots → (ids, scores, surviving), -1 /
     -inf at the ranks past the unique candidates found. Counts
     into the span innermost on this thread, over the first `rows` rows of
     Q (the rest pad the tile): `probed` partitions, `gathered` slots of
     the whole index under them and `scored`, the eligible ones among
-    them, which alone reach the scorer and the dedup."""
-    with span("search.route"):
-        psc, parts = router.route(Q, top_t)
+    them, which alone reach the scorer and the dedup. route: the router's
+    (scores, parts) when already taken, at top_t or wider (cut here)."""
+    if route is None:
+        with span("search.route"):
+            route = router.route(Q, top_t)
+    psc, parts = route[0][:, :top_t], route[1][:, :top_t]
     if recording():
         live = torch.isfinite(psc)
         live[rows:] = False
@@ -308,44 +313,126 @@ def _budget_pass(sub: _Subset, Q: torch.Tensor, router, top_t: int, final_k: int
     return torch.where(torch.isfinite(vals), ids, -1), vals, surv
 
 
+def _padded(Q: torch.Tensor, tile_rows: Optional[int]) -> torch.Tensor:
+    """Q with zero rows appended up to tile_rows (None: as it is)."""
+    n = Q.shape[0]
+    if tile_rows is None or n >= tile_rows:
+        return Q
+    return torch.cat([Q, Q.new_zeros((tile_rows - n, Q.shape[1]))])
+
+
+def settle_steps(sub: _Subset, parts: torch.Tensor, widths, multiplicity: int):
+    """Each row's escalation step from one count → (steps (n,) int64,
+    settled (n,) bool), for a router whose steps are prefixes of one
+    route. parts: (n, ≥ widths[-1]) each row's partitions in route order;
+    widths: the probe width of steps 1, 2, … (`nested_steps`).
+
+    A row's step is the first whose probes hold `sub.thresh` unique
+    eligible ids: the walk's rule, as a pass's surviving count is
+    min(unique eligible ids, stage budget) wherever an id holds at most
+    `multiplicity` window slots, as the dedup assumes. So the count needs
+    no prefix past the first step whose eligible slots reach multiplicity
+    · thresh; one sync reads that width. Under it: the eligible ids of
+    the prefix in probe order, each id's first occurrence marked (a
+    stable sort by id), cumulated per probe and read at each step's
+    width. A row whose count reaches thresh at no step within the prefix
+    (an id held more often than assumed) is not `settled` and takes the
+    last step."""
+    n = parts.shape[0]
+    slots = sub.packed.extent[parts[:, :widths[-1]]].cumsum(1)        # (n, c')
+    short = torch.stack([slots[:, w - 1] for w in widths], 1) < multiplicity * sub.thresh
+    wide = widths[min(int(short.sum(1).amax()), len(widths) - 1)]     # the one sync
+    ids = sub.packed.part_ids[parts[:, :wide]]                         # (n, wide, W)
+    srt, pos = torch.sort(ids.reshape(n, -1), dim=1, stable=True)
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    new = torch.zeros_like(first).scatter_(1, pos, first & (srt >= 0))
+    uniq = new.reshape(ids.shape).sum(2).cumsum(1)                     # (n, wide)
+    reached = torch.stack([uniq[:, w - 1] for w in widths if w <= wide], 1) >= sub.thresh
+    settled = reached.any(1)
+    steps = torch.where(settled, (~reached).sum(1) + 1, len(widths))
+    return steps, settled
+
+
 def _search_block_budget(sub: _Subset, Q: torch.Tensor, rows: int, top_t: int,
                          final_k: int, rerank_budget: int, multiplicity: int = 2,
                          router=None, tile_rows: Optional[int] = None):
     """`escalate="budget"` over one tile whose first `rows` rows are queries
     (the rest pad it and never escalate). A row is thin while its unique
-    eligible candidates are fewer than `sub.thresh`; each step takes the
-    thin rows alone one router-escalation step up (flat: doubled top_t;
-    tree: doubled top_t and t_route), run at `tile_rows` rows when given
-    so a query's bits do not depend on its tile mates, until no row is
-    thin or the router cannot escalate. A row's answer is that of the
-    pass at which it stopped. Each step is the span "search.escalate"
-    (counts `step`, `top_t`, `rows` entering, `kept`: rows that stop
-    there)."""
+    eligible candidates are fewer than `sub.thresh`; it takes router-
+    escalation steps (flat: doubled top_t; tree: doubled top_t and
+    t_route) until it is not thin or the router cannot escalate, and its
+    answer is that of the pass at the step where it stopped. Every pass
+    after the first runs at `tile_rows` rows when given, so a query's
+    bits do not depend on its tile mates.
+
+    Where the router's steps are prefixes of one route (`nested_steps`:
+    flat), the first pass takes the route at the widest step, cut, and
+    `settle_steps` finds each thin row's step from it at once; then one
+    pass a step present runs over the rows settled there. The span
+    "search.escalate", one a tile, counts `rows` entering, `step` and
+    `top_t` of the widest settled, `kept` (every row entering), `settled`
+    (rows whose step the count decided) and `passes`. Else each step is a
+    pass over the rows still thin, its own span "search.escalate" (counts
+    `step`, `top_t`, `rows` entering, `kept`: rows that stop there)."""
     packed = sub.packed
     if router is None:
         router = packed.router if packed.router is not None \
             else FlatRouter(packed.centroids)
     check_query_dim(Q, packed.centroids.shape[1])
     t = router.clamp(top_t)
+    widths = router.nested_steps(t)
+    route = None
+    if widths:
+        with span("search.route"):
+            route = router.route(Q, widths[-1])
     ids, vals, surv = _budget_pass(sub, Q, router, t, final_k, rerank_budget,
-                                   multiplicity, rows)
+                                   multiplicity, rows, route)
     thin = torch.nonzero(surv[:rows] < sub.thresh)[:, 0]
+    if widths is not None:
+        if thin.numel() and widths:
+            _settle(sub, Q, route[1], thin, ids, vals, widths, final_k,
+                    rerank_budget, multiplicity, router, tile_rows)
+        return ids, vals
     step = 0
     while thin.numel() and router.can_escalate(t):
         step += 1
         router, t = router.escalated(t)
         n = thin.numel()
         with span("search.escalate", step=step, top_t=t, rows=n) as esc:
-            Qs = Q[thin]
-            if tile_rows is not None and n < tile_rows:
-                Qs = torch.cat([Qs, Qs.new_zeros((tile_rows - n, Qs.shape[1]))])
-            i2, v2, s2 = _budget_pass(sub, Qs, router, t, final_k, rerank_budget,
-                                      multiplicity, n)
+            i2, v2, s2 = _budget_pass(sub, _padded(Q[thin], tile_rows), router, t,
+                                      final_k, rerank_budget, multiplicity, n)
             ids[thin], vals[thin] = i2[:n], v2[:n]
             still = s2[:n] < sub.thresh
             esc.count(kept=~still if router.can_escalate(t) else n)
             thin = thin[still]
     return ids, vals
+
+
+def _settle(sub: _Subset, Q: torch.Tensor, parts: torch.Tensor, thin: torch.Tensor,
+            ids: torch.Tensor, vals: torch.Tensor, widths, final_k: int,
+            rerank_budget: int, multiplicity: int, router, tile_rows: Optional[int]):
+    """The thin rows' steps settled (`settle_steps` over their rows of the
+    tile's route, parts), then one pass a step present over the rows
+    settled there, written into ids / vals."""
+    n = thin.numel()
+    with span("search.escalate", rows=n) as esc:
+        steps, settled = settle_steps(sub, parts[thin], widths, multiplicity)
+        order = torch.argsort(steps, stable=True)
+        per_step = torch.zeros(len(widths) + 1, dtype=steps.dtype, device=steps.device)
+        per_step = per_step.scatter_add_(0, steps, torch.ones_like(steps)).tolist()
+        rows, at = thin[order], 0
+        for s, m in enumerate(per_step):
+            if not m:
+                continue
+            r = rows[at:at + m]
+            at += m
+            i2, v2, _ = _budget_pass(sub, _padded(Q[r], tile_rows), router, widths[s - 1],
+                                     final_k, rerank_budget, multiplicity, m)
+            ids[r], vals[r] = i2[:m], v2[:m]
+        top = max(s for s, m in enumerate(per_step) if m)
+        esc.count(step=top, top_t=widths[top - 1], kept=n, settled=settled,
+                  passes=sum(1 for m in per_step if m))
 
 
 def _filter_bits(packed: PackedIVF, filter) -> Optional[torch.Tensor]:
@@ -437,8 +524,7 @@ def search_jit_batched(packed: PackedIVF, Q, top_t: int, final_k: int,
         with span("search.tile", tile=i0 // bq):
             Qt = Q[i0:i0 + bq]
             n = Qt.shape[0]
-            if tile_rows is not None and n < tile_rows:
-                Qt = torch.cat([Qt, Qt.new_zeros((tile_rows - n, Qt.shape[1]))])
+            Qt = _padded(Qt, tile_rows)
             if sub is not None:
                 ids, vals = _search_block_budget(
                     sub, Qt, max(0, min(n, real - i0)), top_t, final_k, rerank_budget,

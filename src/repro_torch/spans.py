@@ -19,9 +19,10 @@ While it records, each span is kept as a `Span`:
   search request or one build;
 - `counts`: the keyword counts given when the span was made or to
   `count()` while it ran (the span's, or the module's, which counts into
-  the span innermost on the calling thread). A tensor count is kept as
-  the sum of its elements, on its device, and read by `spans()`, so
-  counting on the device never waits for it.
+  the span innermost on the calling thread); a key counted again adds to
+  what it holds. A tensor count is kept as the sum of its elements, on
+  its device, and read by `spans()`, so counting on the device never
+  waits for it.
 
 Each recording span is also an event of the profiler's own trace (a
 function-scope record, as an operator's), so an exported chrome trace
@@ -160,7 +161,10 @@ class _Span:
         return False
 
     def count(self, **counts) -> None:
-        self.counts.update(counts)
+        for k, v in counts.items():
+            if isinstance(v, torch.Tensor):
+                v = v.sum()
+            self.counts[k] = self.counts[k] + v if k in self.counts else v
 
 
 class _Timed(_Span):

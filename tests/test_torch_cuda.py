@@ -541,9 +541,12 @@ def test_tree_filtered_slice_on_card_matches_cpu(cuda):
 def test_budget_filtered_search_on_card_matches_cpu(cuda, selectivity):
     """`escalate="budget"` on a glove-shaped slice (d 100, m 50, c 120):
     the card's answers equal the CPU's and the plain reference's
-    (tests/filtered_ref.py), two card runs give the same bits, and the
-    counters add up: `scored` is the eligible slots under the partitions
-    each query probed in each pass, at most `gathered`, their slots."""
+    (tests/filtered_ref.py), two card runs give the same bits, a thin
+    query searched alone (padded to tile_rows) gets the bits it gets in
+    its full tile, and the counters add up under the settled path:
+    `scored` is the eligible slots under the partitions each query
+    probed, at most `gathered`, their slots, in every row's first pass at
+    top_t and each thin row's one pass at its reference step."""
     ds = make_manifold(0, 60_000, 100, nq=300, device="cpu")
     card = build_ivf_sharded(torch.Generator().manual_seed(0), ds.X.to(cuda), 120,
                              pq_subspaces=50, device=cuda)
@@ -575,12 +578,19 @@ def test_budget_filtered_search_on_card_matches_cpu(cuda, selectivity):
     elig = ((part_ids >= 0) & (bits[part_ids.clamp(min=0).long()] > 0)).sum(1)
     want = dict(probed=0, gathered=0, scored=0)
     for st in range(int(ref.steps.max()) + 1):
-        rows = ref.steps >= st
-        parts = torch.topk(ds.Q[rows] @ packed_cpu.centroids.T, min(8 << st, 120)).indices
-        want["probed"] += parts.numel()
-        want["gathered"] += int(packed_cpu.extent[parts].sum())
-        want["scored"] += int(elig[parts].sum())
+        for t in {8, min(8 << st, 120)}:
+            rows = ref.steps == st
+            parts = torch.topk(ds.Q[rows] @ packed_cpu.centroids.T, t).indices
+            want["probed"] += parts.numel()
+            want["gathered"] += int(packed_cpu.extent[parts].sum())
+            want["scored"] += int(elig[parts].sum())
     assert total == want and total["scored"] < total["gathered"]
+    esc = [s for s in recs if s.name == "search.escalate"]
+    assert sum(s.counts["settled"] for s in esc) == int((ref.steps > 0).sum())
+    for st in sorted(set(ref.steps.tolist()) - {0}):       # a thin query of each step
+        i = int(torch.nonzero(ref.steps == st)[0, 0])
+        a, sa = search_jit_batched(packed_card, ds.Q[i:i + 1].to(cuda), **kw)
+        assert torch.equal(a, ids1[i:i + 1]) and torch.equal(sa, s1[i:i + 1])
 
 
 # ------------------------------------------------- the rest of the build

@@ -18,7 +18,7 @@ from repro_torch.core import pack_ivf, search_jit, search_jit_batched
 from repro_torch.core.build import build_ivf_sharded
 from repro_torch.core.mutable import MutableIVF
 from repro_torch.core.router import FlatRouter, train_tree_router
-from repro_torch.core.search import ESCALATE_BUDGET, filtered_pack
+from repro_torch.core.search import ESCALATE_BUDGET, _subset, filtered_pack, settle_steps
 from repro_torch.data.vectors import make_manifold
 from repro_torch.serve.api import ESCALATE_MODES, SearchParams
 from repro_torch.serve.engine import AnnEngine
@@ -95,13 +95,37 @@ def _ref(packed, routers, router, selectivity, Q, seed=7):
 
 
 def _escalations(fn):
-    """fn() under the profiler → (its result, the "search.escalate" spans)."""
+    """fn() under the profiler → (its result, the spans it recorded)."""
     spans.reset()
     with profiling():
         out = fn()
     recs = spans.spans()
     spans.reset()
     return out, recs
+
+
+class WalkingFlat(FlatRouter):
+    """The flat probe with its steps not reported as nested: the search
+    walks it a pass a step, as it walks the tree router."""
+
+    def nested_steps(self, top_t):
+        return None
+
+
+def _solo(packed, Q, bits, router):
+    """Each query searched alone, as a tile of one padded to BQ rows →
+    (ids, scores, each row's escalation step: the widest "search.escalate"
+    step of its tile, 0 where it took none)."""
+    (ids, scores), recs = _escalations(lambda: search_jit_batched(
+        packed, Q, bq=1, tile_rows=BQ, filter=bits, escalate="budget", router=router,
+        **KW))
+    tiles = {s.id: s.counts["tile"] for s in recs if s.name == "search.tile"}
+    steps = torch.zeros(Q.shape[0], dtype=torch.int64)
+    for s in recs:
+        if s.name == "search.escalate":
+            i = tiles[s.parent]
+            steps[i] = max(int(steps[i]), s.counts["step"])
+    return ids, scores, steps
 
 
 @pytest.mark.parametrize("router", ["flat", "tree"])
@@ -121,10 +145,17 @@ def test_budget_equals_the_reference(packed, routers, data, router, selectivity)
 
 @pytest.mark.parametrize("router", ["flat", "tree"])
 def test_only_thin_rows_take_each_step(packed, routers, data, router):
-    """Ragged tiles (bq 64, 200 queries, every tile run at 64 rows): the
-    rows entering step s, summed over tiles, are the reference's queries
-    that take s steps or more, and the last tile's 56 pad rows never
-    escalate."""
+    """Ragged tiles (bq 64, 200 queries, every tile run at 64 rows).
+    Tree: the rows entering step s, summed over tiles, are the reference's
+    queries that take s steps or more, and the last tile's 56 pad rows
+    never escalate. Flat (the settled path): a tile's one escalation
+    settles its thin rows alone, each at the reference's step for that
+    row, with one pass a step present; a query alone settles where it
+    settles in its tile, and gets the same bits."""
+    if router == "flat":
+        for sel in (0.015, 0.005):
+            _settled_tiles_follow_the_reference(packed, routers, data, sel)
+        return
     sel = 0.015
     bits = _bitmap(sel)
     ref = _ref(packed, routers, router, sel, data[1])
@@ -143,6 +174,32 @@ def test_only_thin_rows_take_each_step(packed, routers, data, router):
     tiles = {s.id: s.counts["tile"] for s in recs if s.name == "search.tile"}
     last = [s.counts["rows"] for s in esc if tiles.get(s.parent) == 3]
     assert all(r <= NQ - 3 * BQ for r in last)
+
+
+def _settled_tiles_follow_the_reference(packed, routers, data, sel):
+    bits = _bitmap(sel)
+    ref = _ref(packed, routers, "flat", sel, data[1])
+    (ids, scores), recs = _escalations(lambda: search_jit_batched(
+        packed, data[1], bq=BQ, tile_rows=BQ, filter=bits, escalate="budget",
+        router=routers["flat"], **KW))
+    assert (ids.long() == ref.ids).float().mean() >= 0.995
+    tiles = {s.id: s.counts["tile"] for s in recs if s.name == "search.tile"}
+    esc = {tiles[s.parent]: s for s in recs if s.name == "search.escalate"}
+    assert len(esc) == sum(1 for s in recs if s.name == "search.escalate")
+    for tile in range(len(tiles)):
+        st = ref.steps[tile * BQ:(tile + 1) * BQ]
+        thin = st[st > 0]
+        if not thin.numel():
+            assert tile not in esc
+            continue
+        c = esc[tile].counts
+        assert c["rows"] == c["settled"] == c["kept"] == thin.numel()
+        assert c["step"] == int(thin.max()) and c["top_t"] == min(TOP_T << c["step"], C)
+        assert c["passes"] == len(set(thin.tolist()))
+        assert c["probed"] == sum(min(TOP_T << int(s), C) for s in thin)
+    alone, alone_s, steps = _solo(packed, data[1], bits, routers["flat"])
+    assert torch.equal(steps, ref.steps)
+    assert torch.equal(alone, ids) and alone_s.numpy().tobytes() == scores.numpy().tobytes()
 
 
 def test_a_tile_of_the_whole_batch_gives_the_same_answers(packed, routers, data):
@@ -230,25 +287,122 @@ def test_filtered_pack_keeps_the_eligible_slots_alone(packed):
 
 def test_the_counters_add_up(packed, routers, data):
     """`scored` ≤ `gathered`; `scored` is the eligible slots and `gathered`
-    the slots of the partitions each query probed in each of its passes
-    (the reference's steps, the flat route)."""
-    sel = 0.015
-    bits = torch.from_numpy(_bitmap(sel))
+    the slots of the partitions each query probed: every row's first pass
+    at TOP_T, and one pass for each thin row at TOP_T << its reference
+    step (the flat route's settled path)."""
+    for sel in (0.015, 0.005):
+        bits = torch.from_numpy(_bitmap(sel))
+        ref = _ref(packed, routers, "flat", sel, data[1])
+        _, recs = _escalations(lambda: search_jit_batched(
+            packed, data[1], bq=BQ, tile_rows=BQ, filter=bits.numpy(), escalate="budget",
+            **KW))
+        total = {k: sum(s.counts.get(k, 0) for s in recs)
+                 for k in ("probed", "gathered", "scored")}
+        elig = ((packed.part_ids >= 0) & (bits[packed.part_ids.clamp(min=0).long()] > 0)).sum(1)
+        want = dict(probed=0, gathered=0, scored=0)
+        for q, s in zip(data[1], ref.steps.tolist()):
+            for t in ([TOP_T, min(TOP_T << s, C)] if s else [TOP_T]):
+                parts = torch.topk(q @ packed.centroids.T, t).indices
+                want["probed"] += parts.numel()
+                want["gathered"] += int(packed.extent[parts].sum())
+                want["scored"] += int(elig[parts].sum())
+        assert total == want
+        assert total["scored"] < total["gathered"]
+    assert int(ref.steps.max()) > 1          # 0.005: rows settle past the first step
+
+
+def test_a_tile_whose_rows_settle_at_two_steps_runs_one_pass_a_step(packed, routers, data):
+    """Three rows that settle at step 2 and three at step 3 in one tile:
+    one escalation, two passes after the first (each its own stages),
+    each row probing its own step's width, and the reference's answers."""
+    sel = 0.005
+    bits = _bitmap(sel)
     ref = _ref(packed, routers, "flat", sel, data[1])
-    _, recs = _escalations(lambda: search_jit_batched(
-        packed, data[1], bq=BQ, tile_rows=BQ, filter=bits.numpy(), escalate="budget", **KW))
-    total = {k: sum(s.counts.get(k, 0) for s in recs) for k in ("probed", "gathered", "scored")}
-    elig = ((packed.part_ids >= 0) & (bits[packed.part_ids.clamp(min=0).long()] > 0)).sum(1)
-    want = dict(probed=0, gathered=0, scored=0)
-    for s in range(int(ref.steps.max()) + 1):
-        rows = ref.steps >= s
-        t = min(TOP_T << s, C)
-        parts = torch.topk(data[1][rows] @ packed.centroids.T, t).indices
-        want["probed"] += parts.numel()
-        want["gathered"] += int(packed.extent[parts].sum())
-        want["scored"] += int(elig[parts].sum())
-    assert total == want
-    assert total["scored"] < total["gathered"]
+    two, three = torch.nonzero(ref.steps == 2)[:3, 0], torch.nonzero(ref.steps == 3)[:3, 0]
+    assert two.numel() == three.numel() == 3
+    pick = torch.cat([three, two])
+    (ids, _), recs = _escalations(lambda: search_jit_batched(
+        packed, data[1][pick], bq=BQ, tile_rows=BQ, filter=bits, escalate="budget", **KW))
+    (esc,) = [s for s in recs if s.name == "search.escalate"]
+    c = esc.counts
+    assert c["rows"] == c["settled"] == c["kept"] == 6 and c["passes"] == 2
+    assert c["step"] == 3 and c["top_t"] == min(TOP_T << 3, C)
+    assert c["probed"] == 3 * min(TOP_T << 2, C) + 3 * min(TOP_T << 3, C)
+    inner = [s.name for s in recs if s.parent == esc.id]
+    assert inner.count("search.route") == 2 and inner.count("search.rerank") == 2
+    assert (ids.long() == ref.ids[pick]).float().mean() >= 0.995
+
+
+@pytest.mark.parametrize("selectivity", [0.015, 0.005, 0.001])
+def test_the_settled_path_gives_the_walks_bits(packed, data, index, selectivity):
+    """The flat router settled and the same router walked a pass a step:
+    the same ids and score bits, each row's pass at the step where the
+    walk stopped; the settled tile runs at most one pass a step present,
+    the walk one a step it takes."""
+    bits = _bitmap(selectivity)
+    kw = dict(bq=BQ, tile_rows=BQ, filter=bits, escalate="budget", **KW)
+    (a, sa), ra = _escalations(lambda: search_jit_batched(
+        packed, data[1], router=FlatRouter(index.centroids), **kw))
+    (b, sb), rb = _escalations(lambda: search_jit_batched(
+        packed, data[1], router=WalkingFlat(index.centroids), **kw))
+    assert torch.equal(a, b) and sa.numpy().tobytes() == sb.numpy().tobytes()
+    settled = [s for s in ra if s.name == "search.escalate"]
+    walked = [s for s in rb if s.name == "search.escalate"]
+    assert sum(s.counts["passes"] for s in settled) <= len(walked)
+    assert sum(s.counts["rows"] for s in settled) == sum(
+        s.counts["rows"] for s in walked if s.counts["step"] == 1)
+    for k in ("probed", "gathered", "scored"):
+        assert sum(s.counts.get(k, 0) for s in ra) <= sum(s.counts.get(k, 0) for s in rb)
+
+
+def test_a_population_under_the_budget_settles_where_the_walk_stopped(packed, data, index):
+    """Twenty eligible ids, all in the first query's best partition
+    (thresh 20 < the budget): each query alone settles at the step where
+    the walk stopped, and at the reference's, with the walk's bits."""
+    q0 = data[1][:1]
+    p0 = int(torch.argmax(q0 @ index.centroids.T))
+    held = packed.part_ids[p0]
+    bits = np.zeros(N, np.uint8)
+    bits[held[held >= 0][:20].numpy()] = 1
+    Q = data[1][:40]
+    ids, scores, steps = _solo(packed, Q, bits, FlatRouter(index.centroids))
+    w_ids, w_scores, w_steps = _solo(packed, Q, bits, WalkingFlat(index.centroids))
+    assert torch.equal(steps, w_steps) and torch.equal(ids, w_ids)
+    assert scores.numpy().tobytes() == w_scores.numpy().tobytes()
+    ref = fr.search(_ref_index(packed, None), Q, torch.from_numpy(bits), top_t=TOP_T, k=K,
+                    budget=BUDGET)
+    assert torch.equal(steps, ref.steps) and len(set(steps.tolist())) > 1
+    assert ((ids >= 0).sum(1) == K).all()
+
+
+def test_the_flat_router_says_its_steps_nest(routers, data):
+    """Flat: the widths of its steps, each route the widest's cut; tree:
+    None, its steps widen the reachable set."""
+    flat = routers["flat"]
+    assert flat.nested_steps(TOP_T) == [16, 32, 64] and flat.nested_steps(C) == []
+    assert flat.nested_steps(40) == [64] and flat.nested_steps(0) == []
+    v, p = flat.route(data[1], C)
+    for w in (TOP_T, 16, 32):
+        vw, pw = flat.route(data[1], w)
+        assert torch.equal(pw, p[:, :w]) and vw.numpy().tobytes() == v[:, :w].numpy().tobytes()
+    assert routers["tree"].nested_steps(TOP_T) is None
+
+
+def test_an_id_held_more_often_than_assumed_takes_the_last_step(packed, routers, data):
+    """`settle_steps` at multiplicity 1 over a spilled index (an id may
+    hold two slots): the prefix it counts can stop short, and a row whose
+    count does not reach the bar there is not settled and takes the last
+    step; a row settled at both multiplicities settles at the same step."""
+    bits = torch.from_numpy(_bitmap(0.005))
+    sub = _subset(packed, bits, K, BUDGET)
+    parts = routers["flat"].route(data[1], C)[1]
+    widths = routers["flat"].nested_steps(TOP_T)
+    steps2, settled2 = settle_steps(sub, parts, widths, 2)
+    steps1, settled1 = settle_steps(sub, parts, widths, 1)
+    ref = _ref(packed, routers, "flat", 0.005, data[1])
+    assert settled2.all() and torch.equal(steps2, ref.steps)
+    assert (~settled1).any() and (steps1[~settled1] == len(widths)).all()
+    assert torch.equal(steps1[settled1], steps2[settled1])
 
 
 def test_search_params_take_the_budget_mode():
