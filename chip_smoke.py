@@ -2910,7 +2910,7 @@ def ann_phases(args):
         # engine), bucket 8 (JAX's padding alone), bucket 8 at 128 rows (now)
         packed, q1 = mut.pack(), Qn[:1]
         kw1 = dict(top_t=TOP_T, final_k=FINAL_K, rerank_budget=BUDGET,
-                   multiplicity=1 + max(mut.n_spills, 1))
+                   multiplicity=mut.dedup_multiplicity)
         q8 = pad_queries(q1, BQ)[0]
         out["one_query_ms"] = {name: host_us(fn) / 1e3 for name, fn in (
             ("one_row", lambda: search_jit_batched(packed, q1, bq=BQ, **kw1)[0].cpu()),

@@ -49,7 +49,7 @@ collectives, each replica runs the single-device pipeline on its rows.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -570,20 +570,23 @@ def packed_to(packed: PackedIVF, device: torch.device) -> PackedIVF:
 
 def make_replicated_search(devices: Sequence, *, top_t: int, final_k: int,
                            rerank_budget: int = 256, multiplicity: int = 2,
-                           with_filter: bool = False, escalate: bool = True,
+                           with_filter: bool = False, escalate: Union[bool, str] = True,
                            params=None, bq: int = 128,
                            tile_rows: Optional[int] = None):
     """Replica fan-out over `devices` (torch devices or their names; one
-    device may appear twice). Returns fn(PackedIVF, Q[, filter]) →
-    (ids, scores) on the first device; Q's row count must be divisible by
-    the number of replicas (serving callers get this from
+    device may appear twice). Returns fn(PackedIVF, Q[, filter], *,
+    queries=None) → (ids, scores) on the first device; Q's row count must
+    be divisible by the number of replicas (serving callers get this from
     `pad_queries(..., multiple=R)`).
 
     Replica r takes rows [r·L, (r+1)·L) of Q (L = nq / R) and runs
     `search_jit_batched` on its own copy of the index in tiles of `bq`
     queries, each run at `tile_rows` rows when given. With the same `bq`
     and `tile_rows` as the single-device path, every query is searched at
-    the same shapes as there, so results are the same bits.
+    the same shapes as there, so results are the same bits. `queries`:
+    Q's leading rows that are queries (default all), max(0, min(L,
+    queries − r·L)) of them replica r's; the rest pad the batch and never
+    escalate. escalate: True, False or "budget" (`search_jit_batched`).
 
     The copies are made once and reused while the caller passes the same
     PackedIVF object: `MutableIVF.pack()` returns a new one after every
@@ -617,7 +620,7 @@ def make_replicated_search(devices: Sequence, *, top_t: int, final_k: int,
             cache["src"] = packed
         return cache["copies"]
 
-    def fn(packed: PackedIVF, Q, filt=None):
+    def fn(packed: PackedIVF, Q, filt=None, *, queries: Optional[int] = None):
         if with_filter != (filt is not None):
             raise TypeError("pass a filter exactly when with_filter=True")
         Q = as_tensor(Q, packed.centroids.device, torch.float32)
@@ -625,6 +628,7 @@ def make_replicated_search(devices: Sequence, *, top_t: int, final_k: int,
         if nq % R:
             raise ValueError(f"{nq} query rows do not split over {R} replicas")
         L = nq // R
+        real = nq if queries is None else int(queries)
         outs = []
         for r, (dev, copy) in enumerate(zip(devs, replicas(packed))):
             f = None if filt is None else as_tensor(filt, dev)
@@ -632,7 +636,7 @@ def make_replicated_search(devices: Sequence, *, top_t: int, final_k: int,
                 copy, Q[r * L:(r + 1) * L].to(dev), top_t=top_t,
                 final_k=final_k, rerank_budget=rerank_budget, bq=bq,
                 multiplicity=multiplicity, filter=f, escalate=escalate,
-                tile_rows=tile_rows))
+                tile_rows=tile_rows, queries=max(0, min(L, real - r * L))))
         out_dev = devs[0]
         return (torch.cat([o[0].to(out_dev) for o in outs]),
                 torch.cat([o[1].to(out_dev) for o in outs]))

@@ -46,7 +46,7 @@ import math
 import os
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -214,6 +214,12 @@ class MutableIVF:
     def dead_fraction(self) -> float:
         s = self.n_slots
         return self.n_dead_slots / s if s else 0.0
+
+    @property
+    def dedup_multiplicity(self) -> int:
+        """The search dedup's `multiplicity`: the window slots one point
+        may hold (its primary and spills, at least two)."""
+        return 1 + max(self.n_spills, 1)
 
     def _invalidate(self):
         """Full snapshot invalidation (capacity growth / compaction)."""
@@ -450,8 +456,9 @@ class MutableIVF:
         the standing filter can plausibly help."""
         return 2 * self.n_soft_deleted > self.n_total
 
-    def serving_filter(self, mask=None, ids=None, escalate: bool = True):
-        """(device filter or None, escalate) for the serving path:
+    def serving_filter(self, mask=None, ids=None, escalate: Union[bool, str] = True):
+        """(device filter or None, escalate: True, False or "budget") for
+        the serving path:
 
         - no user subset → the cached standing bitmap (only while soft
           tombstones exist), escalation gated on `standing_filter_thin`;

@@ -218,19 +218,14 @@ def _search_pass(packed: PackedIVF, Q: torch.Tensor, router, top_t: int,
     return fi, fv, surviving
 
 
-def _search_block(packed: PackedIVF, Q: torch.Tensor, top_t: int, final_k: int,
+def _search_block(packed: PackedIVF, Q: torch.Tensor, router, top_t: int, final_k: int,
                   rerank_budget: int, multiplicity: int = 2,
-                  filter: Optional[torch.Tensor] = None, escalate: bool = False,
-                  router=None):
+                  filter: Optional[torch.Tensor] = None, escalate: bool = False):
     """One `_search_pass`, plus, on the filtered path only, a second pass
     one router-escalation step up (flat: doubled top_t; tree: doubled top_t
     and t_route) whose rows replace the first pass's where its surviving
-    window was thinner than the stage budget."""
-    if router is None:
-        router = packed.router if packed.router is not None \
-            else FlatRouter(packed.centroids)
-    check_query_dim(Q, packed.centroids.shape[1])
-    top_t = router.clamp(top_t)
+    window was thinner than the stage budget. router and top_t: the
+    call's, resolved and clamped once (`search_jit_batched`)."""
     ids1, vals1, surv1 = _search_pass(packed, Q, router, top_t, final_k,
                                       rerank_budget, multiplicity, filter)
     if filter is None or not escalate or not router.can_escalate(top_t):
@@ -354,9 +349,9 @@ def settle_steps(sub: _Subset, parts: torch.Tensor, widths, multiplicity: int):
     return steps, settled
 
 
-def _search_block_budget(sub: _Subset, Q: torch.Tensor, rows: int, top_t: int,
+def _search_block_budget(sub: _Subset, Q: torch.Tensor, rows: int, router, t: int,
                          final_k: int, rerank_budget: int, multiplicity: int = 2,
-                         router=None, tile_rows: Optional[int] = None):
+                         tile_rows: Optional[int] = None):
     """`escalate="budget"` over one tile whose first `rows` rows are queries
     (the rest pad it and never escalate). A row is thin while its unique
     eligible candidates are fewer than `sub.thresh`; it takes router-
@@ -374,13 +369,9 @@ def _search_block_budget(sub: _Subset, Q: torch.Tensor, rows: int, top_t: int,
     `top_t` of the widest settled, `kept` (every row entering), `settled`
     (rows whose step the count decided) and `passes`. Else each step is a
     pass over the rows still thin, its own span "search.escalate" (counts
-    `step`, `top_t`, `rows` entering, `kept`: rows that stop there)."""
-    packed = sub.packed
-    if router is None:
-        router = packed.router if packed.router is not None \
-            else FlatRouter(packed.centroids)
-    check_query_dim(Q, packed.centroids.shape[1])
-    t = router.clamp(top_t)
+    `step`, `top_t`, `rows` entering, `kept`: rows that stop there).
+    router and t: the call's, resolved and clamped once
+    (`search_jit_batched`)."""
     widths = router.nested_steps(t)
     route = None
     if widths:
@@ -459,16 +450,12 @@ def search_jit(packed: PackedIVF, Q, top_t: int, final_k: int,
     backs thin filtered windows, and with "budget" thin rows walk up the
     escalation steps to the stage budget over the eligible slots alone
     (`_search_block_budget`). router: the probe router; default the one
-    packed on the index, else the flat probe.
+    packed on the index, else the flat probe. It is `search_jit_batched`
+    over one tile of every row, run at its own size.
     """
-    Q = as_tensor(Q, packed.centroids.device, torch.float32)
-    bits = _filter_bits(packed, filter)
-    if bits is not None and escalate == ESCALATE_BUDGET:
-        return _search_block_budget(_subset(packed, bits, final_k, rerank_budget), Q,
-                                    Q.shape[0], top_t, final_k, rerank_budget,
-                                    multiplicity, router)
-    return _search_block(packed, Q, top_t, final_k, rerank_budget, multiplicity,
-                         bits, escalate, router)
+    return search_jit_batched(packed, Q, top_t, final_k, rerank_budget,
+                              bq=max(len(Q), 1), multiplicity=multiplicity,
+                              filter=filter, escalate=escalate, router=router)
 
 
 def bq_bucket(nq: int, bq: int) -> int:
@@ -510,11 +497,16 @@ def search_jit_batched(packed: PackedIVF, Q, top_t: int, final_k: int,
     the batch, and under `escalate="budget"` never escalate."""
     Q = as_tensor(Q, packed.centroids.device, torch.float32)
     filter = _filter_bits(packed, filter)
+    check_query_dim(Q, packed.centroids.shape[1])
     nq = Q.shape[0]
     if nq == 0:
         dev = Q.device
         return (torch.zeros((0, final_k), dtype=torch.int32, device=dev),
                 torch.zeros((0, final_k), dtype=torch.float32, device=dev))
+    if router is None:
+        router = packed.router if packed.router is not None \
+            else FlatRouter(packed.centroids)
+    top_t = router.clamp(top_t)
     sub = None
     if filter is not None and escalate == ESCALATE_BUDGET:
         sub = _subset(packed, filter, final_k, rerank_budget)
@@ -527,11 +519,11 @@ def search_jit_batched(packed: PackedIVF, Q, top_t: int, final_k: int,
             Qt = _padded(Qt, tile_rows)
             if sub is not None:
                 ids, vals = _search_block_budget(
-                    sub, Qt, max(0, min(n, real - i0)), top_t, final_k, rerank_budget,
-                    multiplicity, router, tile_rows)
+                    sub, Qt, max(0, min(n, real - i0)), router, top_t, final_k,
+                    rerank_budget, multiplicity, tile_rows)
             else:
-                ids, vals = _search_block(packed, Qt, top_t, final_k, rerank_budget,
-                                          multiplicity, filter, escalate, router)
+                ids, vals = _search_block(packed, Qt, router, top_t, final_k, rerank_budget,
+                                          multiplicity, filter, escalate)
             outs.append((ids[:n], vals[:n]))
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
 

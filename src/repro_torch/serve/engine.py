@@ -10,9 +10,10 @@ step).
 
 `AnnEngine` adds, removes and searches against a live `MutableIVF` on the
 card: `search` serves from the index's cached packed snapshot through the
-fixed-budget engine (`search_jit_batched`), and mutations bring that
-snapshot in step on the next search. The edge is numpy, as in the JAX
-package: queries come in as arrays, ids and scores go out as arrays.
+fixed-budget engine (`search_jit_batched`, or over several devices for
+the front-end's replica fan-out), and mutations bring that snapshot in
+step on the next search. The edge is numpy, as in the JAX package:
+queries come in as arrays, ids and scores go out as arrays.
 `save` / `open` snapshot and reopen the whole serving state, with an
 optional mutation log (DESIGN.md §3.11), in the JAX package's format.
 """
@@ -28,8 +29,8 @@ import torch
 from repro_torch import faults
 from repro_torch.ckpt.index_store import load_snapshot, save_snapshot
 from repro_torch.ckpt.wal import MutationWAL
+from repro_torch.core.distributed import make_replicated_search
 from repro_torch.core.mutable import MutableIVF
-from repro_torch.core.router import clamp_top_t
 from repro_torch.core.search import pad_queries, search_jit_batched
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -126,6 +127,7 @@ class AnnEngine:
         self.top_t = _positive_int("top_t", top_t)
         self.rerank_budget = _positive_int("rerank_budget", rerank_budget)
         self.bq = _positive_int("bq", bq)
+        self._replicas: dict = {}     # search keywords, devices → replica fn
 
     @classmethod
     def build(cls, gen, X, n_partitions: int, *, spill_mode: str = "soar",
@@ -175,9 +177,10 @@ class AnnEngine:
         return r.ids, r.scores
 
     def search_request(self, Q, params: Optional[SearchParams] = None, *,
-                       _filter_dev=None) -> SearchResult:
+                       _filter_dev=None, _devices=None) -> SearchResult:
         """Structured entry point: (nq, d) queries + SearchParams →
-        SearchResult (numpy ids and scores).
+        SearchResult (numpy ids and scores); the one place a served
+        request becomes a tiled search.
 
         Validation runs through `SearchParams.validate()` and
         `validate_queries`. The queries are padded with zero rows to a
@@ -186,13 +189,18 @@ class AnnEngine:
         is padded alike whether it comes alone or inside a coalesced
         batch; every tile then runs at `bq` rows (`tile_rows`), which makes
         a query's bits on the card independent of what shares its tile
-        (coalesced ≡ solo). `_filter_dev` is the front-end's seam: a
-        pre-composed device uint8 bitmap at the capacity width (tenant ∧
-        alive, cached by its TenantFilterBank) that replaces
-        `serving_filter`; it escalates as `params.escalate` says (under
-        "budget" the pad rows never escalate).
-        `engine_us` runs from the snapshot to the results on the host,
-        whose copy waits for the device.
+        (coalesced ≡ solo), and pad rows never escalate (`queries`). The
+        router clamps top_t. `_filter_dev` and `_devices` are the
+        front-end's seams. `_filter_dev`: a pre-composed device uint8
+        bitmap at the capacity width (tenant ∧ alive, cached by its
+        TenantFilterBank) that replaces `serving_filter`; it escalates as
+        `params.escalate` says. `_devices`: the replica branch, the batch
+        padded to a multiple of their count too and split row-wise over
+        them by a `make_replicated_search` closure cached by the search's
+        keywords and the devices, with the local branch's bits. The fault
+        point "replica:dispatch" fires once a call there, "engine:search"
+        once a local call with queries. `engine_us` runs from the snapshot
+        to the results on the host, whose copy waits for the device.
 
         The call is the span "engine.search_request" (counts: `queries`,
         `padded_rows`, the rows its tiles run, and `tiles`), with children
@@ -202,6 +210,8 @@ class AnnEngine:
         """
         with span("engine.search_request") as req:
             with span("engine.prepare"):
+                if _devices is not None:
+                    faults.serve_point("replica:dispatch")
                 p = (params or SearchParams()).validate(
                     default_top_t=self.top_t, default_rerank=self.rerank_budget)
                 Q = validate_queries(Q, self.index.centroids.shape[1],
@@ -212,7 +222,8 @@ class AnnEngine:
                                         np.empty((0, p.k), np.float32),
                                         epoch=epoch, tenant=p.tenant,
                                         deadline_ms=p.deadline_ms)
-                faults.serve_point("engine:search")
+                if _devices is None:
+                    faults.serve_point("engine:search")
                 if _filter_dev is not None:
                     filt, escalate = _filter_dev, p.escalate
                 else:
@@ -220,17 +231,24 @@ class AnnEngine:
                         mask=p.filter_mask, ids=p.filter_ids, escalate=p.escalate)
                 t0 = time.perf_counter()
                 packed = self.index.pack()
+            R = 1 if _devices is None else len(_devices)
             with span("engine.copy_in"):
-                Qp, nq, bq = pad_queries(Q, self.bq)
+                Qp, nq, bq = pad_queries(Q, self.bq, multiple=R)
                 Qd = as_tensor(Qp, packed.centroids.device, torch.float32)
-            tiles = -(-Qp.shape[0] // bq)
+            tiles = R * -(-(Qp.shape[0] // R) // bq)
             req.count(queries=nq, padded_rows=tiles * self.bq, tiles=tiles)
-            ids, vals = search_jit_batched(
-                packed, Qd,
-                top_t=clamp_top_t(p.top_t, self.index.centroids.shape[0]),
-                final_k=p.k, rerank_budget=max(p.rerank_budget, p.k),
-                bq=bq, multiplicity=1 + max(self.index.n_spills, 1),
-                filter=filt, escalate=escalate, tile_rows=self.bq, queries=nq)
+            kw = dict(top_t=p.top_t, final_k=p.k,
+                      rerank_budget=max(p.rerank_budget, p.k), bq=bq,
+                      multiplicity=self.index.dedup_multiplicity,
+                      escalate=escalate, tile_rows=self.bq)
+            if _devices is None:
+                ids, vals = search_jit_batched(packed, Qd, filter=filt, queries=nq, **kw)
+            else:
+                key = (tuple(_devices), filt is not None, *kw.values())
+                if key not in self._replicas:
+                    self._replicas[key] = make_replicated_search(
+                        _devices, with_filter=filt is not None, **kw)
+                ids, vals = self._replicas[key](packed, Qd, filt, queries=nq)
             with span("engine.copy_out"):
                 ids, vals = ids[:nq].cpu().numpy(), vals[:nq].cpu().numpy()
             return SearchResult(

@@ -39,8 +39,11 @@ This module adds the serving layer:
 
 - **Replica fan-out** — with more than one device and `policy="replica"`
   (or "auto"), coalesced batches are split row-wise over the devices by
-  `core/distributed.make_replicated_search` (index copied to each device,
-  queries split), with the same bits as the local path.
+  the engine's replica branch (`AnnEngine.search_request(_devices=)`,
+  which runs `core/distributed.make_replicated_search`: index copied to
+  each device, queries split), with the same bits as the local path. The
+  front-end decides whether and where to fan out; the engine owns how a
+  request becomes tiles.
 
 Resilience (DESIGN.md §3.13): admission control in cost units (`reject`
 or `shed-oldest`; mutations never shed and never evict searches);
@@ -72,12 +75,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import faults
 from repro_torch.ckpt.index_store import load_extra_arrays, read_manifest
-from repro_torch.core.distributed import make_replicated_search
 from repro_torch.core.mutable import EpochLRU
-from repro_torch.core.router import clamp_top_t
-from repro_torch.core.search import pad_queries
 from repro_torch.serve.api import (DEFAULT_DEADLINE_MS, DeadlineExceededError,
                                    FrontendClosedError, OverloadedError,
                                    SearchParams, SearchResult, _positive_int,
@@ -263,8 +262,8 @@ class ServingFrontend:
     `policy` selects execution: "local" always runs the single-device
     engine path; "replica" splits each coalesced batch row-wise over the
     index's devices (`replica_devices`: every visible CUDA device for an
-    index on the card) via make_replicated_search (index copied to each —
-    the query-bound regime's scaling axis); "auto" picks replica iff more
+    index on the card) through the engine's replica branch (index copied
+    to each — the query-bound regime's scaling axis); "auto" picks replica iff more
     than one device is visible. Both paths give each query the same bits,
     so the policy is purely a throughput decision. The dispatcher loop
     runs under a `torch.no_grad()` of its own (grad mode is per thread).
@@ -323,7 +322,6 @@ class ServingFrontend:
         self._cond = threading.Condition()
         self._closed = False
         self._draining = False
-        self._rep_cache: dict = {}      # search-shape key -> replica fn
         self._thread = threading.Thread(target=self._loop,
                                         name="serve-frontend", daemon=True)
         self._thread.start()
@@ -679,21 +677,20 @@ class ServingFrontend:
         if want_replica and not use_replica:
             degraded = True     # breaker open: full-coverage local serve,
             #                     but the fan-out capacity is reduced
-        ids = None
+        r = None
         if use_replica:
             try:
-                ids, vals, escalated = self._replica_search(Qcat, p,
-                                                            filt_dev)
+                r = self.engine.search_request(
+                    Qcat, p, _filter_dev=filt_dev,
+                    _devices=replica_devices(self.engine.index.device))
                 self.health.success("replica")
                 self.stats["replica_dispatches"] += 1
             except Exception:   # replica target failed: trip + fall back
                 self.health.failure("replica")
                 degraded = True
-        if ids is None:         # local path (policy, breaker, or fallback)
-            r = self.engine.search_request(
-                Qcat, p, **({"_filter_dev": filt_dev}
-                            if filt_dev is not None else {}))
-            ids, vals, escalated = r.ids, r.scores, r.escalated
+        if r is None:           # local path (policy, breaker, or fallback)
+            r = self.engine.search_request(Qcat, p, _filter_dev=filt_dev)
+        ids, vals, escalated = r.ids, r.scores, r.escalated
         if degraded:
             self.stats["degraded"] += len(group)
         engine_us = (time.perf_counter() - t0) * 1e6
@@ -724,37 +721,6 @@ class ServingFrontend:
         # inline host filters stay on the engine path (it owns their
         # compose-and-upload); tenant filters are already device-resident
         return not p.has_inline_filter
-
-    def _replica_search(self, Q: np.ndarray, p: SearchParams, filt_dev):
-        """Split a coalesced batch row-wise over the replica devices.
-        Mirrors the engine path's padding (bucket, tiles at `bq` rows) and
-        filter / escalation plan (serving_filter) exactly, so each query
-        gets the bits of local execution."""
-        faults.serve_point("replica:dispatch")
-        eng = self.engine
-        if filt_dev is None:
-            filt, escalate = eng.index.serving_filter(escalate=p.escalate)
-        else:
-            filt, escalate = filt_dev, p.escalate
-        devs = replica_devices(eng.index.device)
-        R = len(devs)
-        Qp, nq, bq = pad_queries(Q, eng.bq, multiple=R)
-        top_t = clamp_top_t(p.top_t, eng.index.centroids.shape[0])
-        mult = 1 + max(eng.index.n_spills, 1)
-        key = (top_t, p.k, max(p.rerank_budget, p.k), mult, escalate,
-               filt is not None, tuple(devs), bq)
-        fn = self._rep_cache.get(key)
-        if fn is None:
-            fn = make_replicated_search(
-                devs, top_t=top_t, final_k=p.k,
-                rerank_budget=max(p.rerank_budget, p.k), multiplicity=mult,
-                with_filter=filt is not None, escalate=escalate,
-                bq=bq, tile_rows=eng.bq)
-            self._rep_cache[key] = fn
-        ids, vals = fn(eng.index.pack(), Qp,
-                       *((filt,) if filt is not None else ()))
-        return (ids[:nq].cpu().numpy(), vals[:nq].cpu().numpy(),
-                bool(escalate and filt is not None))
 
     # ---------------------------------------------------------- durability
     def save(self, path: str) -> None:

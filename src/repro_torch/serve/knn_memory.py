@@ -210,7 +210,7 @@ class KNNMemory:
             ids, vals = search_jit_batched(
                 self.index.pack(), qp, top_t=top_t, final_k=k,
                 rerank_budget=max(4 * k, 64), bq=bq,
-                multiplicity=1 + max(self.index.n_spills, 1),
+                multiplicity=self.index.dedup_multiplicity,
                 filter=f, escalate=escalate)
             ids, vals = ids[:nq], vals[:nq]
         else:

@@ -1087,7 +1087,8 @@ def test_tenant_bitmap_on_card_refills_once_an_epoch(cuda):
 
 
 def test_replicated_search_on_card_equals_local(cuda):
-    """make_replicated_search over [cuda:0, cuda:0]: the local path's bits."""
+    """make_replicated_search over [cuda:0, cuda:0], and the engine's
+    replica branch over them: the local path's bits."""
     ds, mut = _card_mutable(cuda, seed=7)
     eng = AnnEngine(mut, top_t=8, rerank_budget=64)
     Qn = ds.Q.numpy()[:77]
@@ -1099,6 +1100,11 @@ def test_replicated_search_on_card_equals_local(cuda):
     assert ids.device.type == "cuda"
     assert np.array_equal(ids[:nq].cpu().numpy(), want.ids)
     assert np.array_equal(sc[:nq].cpu().numpy(), want.scores)
+    thin = np.arange(0, mut.n_total, 500)
+    for p in (SearchParams(k=10), SearchParams(k=10, escalate="budget", filter_ids=thin)):
+        want = eng.search_request(Qn, p)
+        got = eng.search_request(Qn, p, _devices=[cuda, cuda])
+        assert np.array_equal(got.ids, want.ids) and np.array_equal(got.scores, want.scores)
 
 
 def test_knn_memory_on_card_matches_cpu_twin(cuda, tmp_path):

@@ -212,6 +212,16 @@ def test_a_tile_of_the_whole_batch_gives_the_same_answers(packed, routers, data)
     np.testing.assert_allclose(sa[same].numpy(), sb[same].numpy(), rtol=1e-6)
 
 
+@pytest.mark.parametrize("escalate", [False, True, "budget"])
+def test_search_jit_is_one_tile_of_search_jit_batched(packed, data, escalate):
+    """`search_jit` is `search_jit_batched` over one tile of every row
+    (bq ≥ nq, no tile_rows): the same bits in each escalate mode."""
+    kw = dict(filter=_bitmap(0.015), escalate=escalate, **KW)
+    a, sa = search_jit(packed, data[1], **kw)
+    b, sb = search_jit_batched(packed, data[1], bq=NQ + 1, **kw)
+    assert torch.equal(a, b) and sa.numpy().tobytes() == sb.numpy().tobytes()
+
+
 def test_pad_rows_of_the_batch_never_escalate(packed, data):
     """`queries`: rows past it pad the batch (the engine's bucket rows)."""
     bits = _bitmap(0.002)

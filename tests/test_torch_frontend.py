@@ -38,7 +38,9 @@ from repro.serve.frontend import ServingFrontend as JaxServingFrontend  # noqa: 
 from repro.serve.frontend import TenantFilterBank as JaxTenantFilterBank  # noqa: E402
 
 from repro_torch import convert, faults  # noqa: E402
+from repro_torch.core import search as search_mod  # noqa: E402
 from repro_torch.core.distributed import make_replicated_search  # noqa: E402
+from repro_torch.core.router import FlatRouter  # noqa: E402
 from repro_torch.core.search import pad_queries, search_jit_batched  # noqa: E402
 from repro_torch.faults import (FaultPlan, InjectedCrash, InjectedFault,  # noqa: E402
                                 InjectedTransientFault)
@@ -660,6 +662,43 @@ def test_replica_policy_multidevice(ds, engine, make_fe, two_replicas):
     fe.policy = "auto"
     fe.submit(ds.Q, SearchParams(k=6)).result(timeout=T_OUT)
     assert fe.stats["replica_dispatches"] == 3
+
+
+@pytest.mark.parametrize("nq", [5, 13])
+def test_replica_budget_pad_rows_never_escalate(ds, engine, make_fe, two_replicas,
+                                                monkeypatch, nq):
+    """Under escalate="budget" and a tenant filter thin enough that a zero
+    (pad) row is thin, a replica dispatch of a batch padded to its bucket
+    gives the local path's bits, and as many thin rows reach
+    `settle_steps` as there: the pad rows never escalate. The rows are
+    counted by a wrapper (spans do not record on the dispatcher thread)."""
+    thin = []
+    real = search_mod.settle_steps
+
+    def spy(sub, parts, widths, multiplicity):
+        thin.append(parts.shape[0])
+        return real(sub, parts, widths, multiplicity)
+
+    monkeypatch.setattr(search_mod, "settle_steps", spy)
+    # six ids that no slot of a zero row's first probes holds
+    zero = FlatRouter(engine.index.centroids).route(torch.zeros(1, D), engine.top_t)[1]
+    keep = np.setdiff1d(np.arange(N), engine.index.pack().part_ids[zero].numpy())[::100]
+    local = SearchParams(k=6, escalate="budget", filter_ids=keep)
+    engine.search_request(np.zeros((1, D), np.float32), local)
+    assert thin == [1], "a zero row must be thin under this filter"
+    thin.clear()
+    want = engine.search_request(ds.Q[:nq], local)
+    n_local = sum(thin)
+    assert n_local
+    fe = make_fe(engine, policy="replica", default_deadline_ms=200.0)
+    fe.register_tenant("t", ids=keep)
+    thin.clear()
+    r = fe.submit(ds.Q[:nq], SearchParams(k=6, escalate="budget", tenant="t")
+                  ).result(timeout=T_OUT)
+    assert fe.stats["replica_dispatches"] == 1 and not r.degraded
+    np.testing.assert_array_equal(r.ids, want.ids)
+    np.testing.assert_array_equal(r.scores, want.scores)
+    assert sum(thin) == n_local
 
 
 def test_one_device_serves_locally(ds, engine, make_fe):
