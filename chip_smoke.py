@@ -17,20 +17,20 @@ just after, and fails if one of its kernels was never launched:
      pack_ivf -> search_jit_batched through the flat router (top_t=40,
      final_k=10, rerank_budget=256, bq=128), cold then warm (QPS from the
      first warm run, and the median of five warm runs beside it). Checks
-     recall@10 >= 0.85 against exact search, one window-scoring launch per
-     tile, ids agreeing on >= 99% of slots with the same search through
-     the plain probe scorer, and the index's whole (n x 2) assignment
+     recall@10 >= 0.85 against exact search, one selecting-scorer launch
+     per tile, ids agreeing on >= 99% of slots with the same search
+     through the selecting scorer's plain version, and the index's whole (n x 2) assignment
      matrix agreeing on >= 99.9% of rows per column with assign_shards run
      through the plain vq and soar versions; prints the spill phase run
      again warm (host clock) and one shard's assign_fused (CUDA events),
-     and one warm tile's stage times (route, ids
-     gather, window scoring, dedup, rerank) and the warm search's own peak
-     memory (kernels: Lloyd, vq_assign, soar_assign, pq_score_probes,
+     and one warm tile's stage times (route, LUT, the selecting
+     scorer, dedup, rerank) and the warm search's own peak memory
+     (kernels: Lloyd, vq_assign, soar_assign, pq_score_probes_select,
      kmeans_pp);
   4. tree-routed search of the same queries through the index's tree
      router, warm: recall@10 >= 0.85, one tree_route launch per tile, ids
      agreeing on >= 99% of slots with the same search through the plain
-     route (kernels: tree_route, pq_score_probes);
+     route (kernels: tree_route, pq_score_probes_select);
   5. filtered tree-routed search with seeded bitmaps keeping 1% and 0.1%
      of the points, each with and without the escalated second pass:
      every returned id passes the filter, and recall@10 against exact
@@ -43,7 +43,8 @@ just after, and fails if one of its kernels was never launched:
      partition's live slots set to -1 in place (the extent kept, sizes the
      live count), searched flat: no row returns a -1 while its window holds
      2 * final_k live slots, and ids agree on >= 99% of slots with the same
-     search through the plain probe scorer (kernel: pq_score_probes);
+     search through the selecting scorer's plain version (kernel:
+     pq_score_probes_select);
   8. k-means modes on the first 131,072 rows, c = 2,000: train_kmeans with
      init="parallel", batch_size=16,384, spherical=True, the full-batch
      k-means++ baseline, and the baseline with the Lloyd sweep's plain
@@ -61,13 +62,14 @@ just after, and fails if one of its kernels was never launched:
      agreeing on >= 99.9% of rows with assign_shards through the plain vq
      and soar versions, and the int8 codes and scales of the first 65,536
      rows equal to the CPU quantization's (kernels: Lloyd, vq_assign,
-     soar_assign, pq_score_probes, kmeans_pp);
+     soar_assign, pq_score_probes_select, kmeans_pp);
  10. variant B, the monolithic build on anisotropic primaries:
      build_ivf(spill_mode="soar", n_spills=1, anisotropic_T=0.2,
      rerank="f32", pq_subspaces=50) over all 1,000,000 rows, then the flat
      search: build phases, recall@10 >= 0.85, QPS, peak memory, and the
      spill column agreeing on >= 99.9% of rows with soar_assign_ref on the
-     card (kernels: Lloyd, soar_assign, pq_score_probes, kmeans_pp). Phases 9-10
+     card (kernels: Lloyd, soar_assign, pq_score_probes_select, kmeans_pp).
+     Phases 9-10
      count the calls of the build's plain-torch work (the spill columns
      after the first, anisotropic_assign, the anisotropic update's normal
      equations and solve, int8_quantize), which no Pallas kernel computes
@@ -93,7 +95,7 @@ just after, and fails if one of its kernels was never launched:
      (top_t 40, rerank_budget 256) has recall@10 >= 0.85 against exact
      search of the live rows, with its QPS and agreement with the engine.
      Prints the phase's peak memory (kernels: vq_assign, soar_assign,
-     tree_route, pq_score_probes);
+     tree_route, pq_score_probes_select);
  12. paper metrics at the main path's shape: the exact top 100 of the
      10,000 queries, then KMR curves (kmr_curve) of the main index (SOAR,
      lam=1) and of build_ivf_sharded(spill_mode="none") and ("naive") on
@@ -118,7 +120,7 @@ just after, and fails if one of its kernels was never launched:
      every slot, its replayed adds launching vq_assign and soar_assign;
      one byte of arrays.bin flipped, after which open raises
      CorruptSnapshotError. Prints replay seconds and the log's bytes
-     (kernels: vq_assign, soar_assign, tree_route, pq_score_probes);
+     (kernels: vq_assign, soar_assign, tree_route, pq_score_probes_select);
  14. the serving front-end (PR 19) in front of phase 11's engine as phase
      13 left it (about 1,000,000 live points, tree-routed): first each
      query's bits alone against its bits inside batches of 2 to 200 (every
@@ -144,7 +146,7 @@ just after, and fails if one of its kernels was never launched:
      over two replicas on the one card equal to the local path on every
      slot of the 10,000 queries, and the front-end saved with its tenants
      and reopened on the card, equal on every slot (kernels: tree_route,
-     pq_score_probes, vq_assign, soar_assign);
+     pq_score_probes_select, vq_assign, soar_assign);
  15. the kNN attention memory (PR 19) of one (layer, KV head) of
      granite-3-2b (head_dim 64, 4 query heads a KV head): 8 sequences x
      32,768 positions = 262,144 keys from make_manifold (intrinsic dim
@@ -176,8 +178,8 @@ just after, and fails if one of its kernels was never launched:
      search over all 4,000,000 vectors >= 0.85 (f32, PQ), >= 0.70 and
      >= 0.65 (tree f32, tree PQ: the JAX package's bars), filtered recall
      against the filtered exact top 10 >= 0.85 with every id in the mask;
-     the PQ and tree-routed searches through the plain probe scorer and
-     plain route agree on >= 99% of slots; HealthTracker masks: all ones
+     the PQ and tree-routed searches through the selecting scorer's plain
+     version and the plain route agree on >= 99% of slots; HealthTracker masks: all ones
      gives the same bits, shard 2 down returns none of its ids, no -1,
      and every healthy answer of the full search; save_sharded of the four
      shards, load_sharded onto the card, the re-stack and its search
@@ -187,8 +189,8 @@ just after, and fails if one of its kernels was never launched:
      (local_shards) and run make_distributed_search_pq(group=...): both
      ranks' ids and scores equal the in-process search bit for bit, with
      each rank's collective ms. Peak memory and the phase's seconds
-     (kernels: Lloyd, vq_assign, soar_assign, tree_route, pq_score_probes,
-     kmeans_pp);
+     (kernels: Lloyd, vq_assign, soar_assign, tree_route,
+     pq_score_probes_select, kmeans_pp);
  17. the contracts of repro_torch.analysis on the card at the main path's
      width, over the hand-written kernels: each of the 11 registered
      contracts traced by the contracts' op recorder (a TorchDispatchMode
@@ -240,7 +242,11 @@ just after, and fails if one of its kernels was never launched:
      67 TFLOP/s), on a "plain work" line; the probe scorer's record also
      gives it at phase 16's m = 25 ("m25", one 64-query tile of shard 0,
      queued behind a longer kernel over 10 launches and over 50: timed back
-     to back, the tile's time followed the host); the seeding kernel at the
+     to back, the tile's time followed the host), and its selecting form
+     ("pq_score_probes_select", kernel and merge) on the same tile's
+     probes, beside the window form followed by the id gather, the mask
+     and torch.topk it replaces ("window_chain_ms", the yardstick); the
+     seeding kernel at the
      codebook's shape (32,768 sample rows x 100, c = 2,000) and at PQ's
      (50 subspaces x 32,768 rows x 2, c = 16) on small integer
      coordinates, where every f32 dot is exact, equal to its plain loop on
@@ -332,15 +338,15 @@ just after, and fails if one of its kernels was never launched:
      route + window (f32); (b) one shard at that size built from
      make_manifold(seed + 7) (PQ 25), its 1,024 queries searched through
      make_distributed_search_pq(group=) of a one-rank NCCL group on
-     cuda:0 (so the all-gather runs) through drive() with the probe
-     scorer required, then the group destroyed and the dry run made of
-     the same shard at world 1 and its pmax: argument bytes equal the
+     cuda:0 (so the all-gather runs) through drive() with the selecting
+     probe scorer required, then the group destroyed and the dry run made
+     of the same shard at world 1 and its pmax: argument bytes equal the
      real tensors' bytes, product FLOPs equal the real search's (the op
-     analysis over it) and the formula, the dry run's probe-scorer calls
-     equal the launches, collective bytes equal; the same search once
-     more on the plain probe scorer, each of its tiles' real arguments
-     also given to the kernel: every tile within 1e-5 and -inf where the
-     plain version has it, ids >= 99% equal; prints the step (CUDA
+     analysis over it) and the formula, the dry run's selecting-scorer
+     calls equal the launches, collective bytes equal; the same search
+     once more on the selecting scorer's plain version, each of its
+     tiles' real arguments also given to the kernel: every tile's scores
+     within 1e-5, its ids equal where the scores are, ids >= 99% equal; prints the step (CUDA
      events, median of 5 warm) beside its needed-bytes bound (the
      distinct probed partitions' rows up to their extent and the
      distinct rerank rows read once) and beside the dry run's
@@ -593,30 +599,30 @@ def timed(fn):
 
 def tile_stages(search, packed, Q, router, reps: int = 10) -> dict:
     """Milliseconds of each stage of one warm unfiltered search tile (the
-    stages of search._search_pass) between CUDA events on the device's
+    stages of search._search_pass's PQ path: the selecting scorer keeps
+    each query's top 2 · BUDGET slots) between CUDA events on the device's
     timeline, so time the device waits on the host inside a stage counts."""
     from repro_torch.quant.pq import pq_lut
     from repro_torch.utils import topk_first
-    names = ("route", "ids_gather", "window_scoring", "mask", "dedup", "rerank")
+    names = ("route", "lut", "select", "dedup", "rerank")
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
     total = dict.fromkeys(names, 0.0)
     for r in range(reps + 1):
         ev[0].record()
         psc, parts = router.route(Q, TOP_T)
         ev[1].record()
-        ids = packed.part_ids[parts].reshape(Q.shape[0], -1)
+        luts = pq_lut(packed.pq, Q)
         ev[2].record()
-        approx = search.pq_score_probes(pq_lut(packed.pq, Q), packed.part_codes,
-                                        packed.extent, parts, psc)
+        keep = min(2 * BUDGET, parts.shape[1] * packed.part_ids.shape[1])
+        ci, cv = search.pq_score_probes_select(luts, packed.part_codes, packed.extent, parts,
+                                               psc, packed.part_ids, keep)
         ev[3].record()
-        approx = approx.masked_fill_(ids < 0, float("-inf"))
+        bi, bv = search.dedup_ranked(ci, cv, BUDGET)
         ev[4].record()
-        bi, bv = search.dedup_topk_window(ids, approx, BUDGET, 2)
-        ev[5].record()
         exact = torch.einsum("qbd,qd->qb", packed.rerank[bi.clamp(min=0).long()], Q)
         exact = torch.where(torch.isfinite(bv), exact, float("-inf"))
         topk_first(exact, FINAL_K)
-        ev[6].record()
+        ev[5].record()
         sync()
         if r:                                   # the first round warms up
             for i, k in enumerate(names):
@@ -770,7 +776,7 @@ def contract_traces(packed, flat, idx, X, Q, bits, shards):
     C = idx.centroids
     rt = packed.router
     kw = dict(top_t=TOP_T, final_k=FINAL_K, rerank_budget=BUDGET, multiplicity=2)
-    probe, route = ("pq_score_probes",), ("tree_route", "pq_score_probes")
+    probe, route = ("pq_score_probes_select",), ("tree_route", "pq_score_probes_select")
     assign = ("vq_assign", "soar_assign")
     two = [DEVICE + ":0"] * 2
     return [
@@ -1636,7 +1642,7 @@ def launch_phase(seed: int, smi: str, wrappers: dict) -> Counter:
                                               make_distributed_search_pq)
     from repro_torch.data.vectors import make_manifold
     from repro_torch.kernels import ref
-    from repro_torch.kernels.pq_score import pq_score_probes
+    from repro_torch.kernels.pq_score import pq_score_probes_select
     from repro_torch.launch import ann_dryrun as a
     from repro_torch.launch.dryrun import fmt_summary
     from repro_torch.launch.op_analysis import analyze
@@ -1674,7 +1680,7 @@ def launch_phase(seed: int, smi: str, wrappers: dict) -> Counter:
         fn = make_distributed_search_pq(top_t=a.TOP_T, final_k=a.FINAL_K,
                                         group=dist.group.WORLD)
         fn(ivq, Q)                                  # warm
-        (ids, sc), counts = drive(wrappers, ("pq_score_probes",), lambda: fn(ivq, Q))
+        (ids, sc), counts = drive(wrappers, ("pq_score_probes_select",), lambda: fn(ivq, Q))
         steps = []
         for _ in range(5):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1690,30 +1696,33 @@ def launch_phase(seed: int, smi: str, wrappers: dict) -> Counter:
         sync()
         rise = torch.cuda.max_memory_allocated() - resident
         real = analyze(fn, ivq, Q)
-        # the same search on the plain probe scorer; each tile's kernel
-        # held against it on the tile's real arguments, and the probed
-        # partitions and rerank candidates kept for the needed bytes
+        # the same search on the selecting scorer's plain version; each
+        # tile's kernel held against it on the tile's real arguments (the
+        # plain sums run in another order, so a near tie may rank the other
+        # way), and the probed partitions and rerank candidates kept for
+        # the needed bytes
         tiles, parts, cands = [], [], []
-        real_dedup = search.dedup_topk_window
+        real_dedup = search.dedup_ranked
 
-        def plain_probes(*pa):
-            want = ref.pq_score_probes_ref(*pa)
-            got = pq_score_probes(*pa)
-            fin = torch.isfinite(want)
+        def plain_select(*pa):
+            want_i, want_v = ref.pq_score_probes_select_ref(*pa)
+            got_i, got_v = pq_score_probes_select(*pa)
+            fin = torch.isfinite(want_v)
             tiles.append({"shape": list(pa[0].shape[:1]) + list(pa[3].shape[1:]),
-                          "inf_equal": torch.equal(torch.isinf(got), torch.isinf(want)),
-                          "close": torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5),
-                          "max_abs_err": float((got[fin] - want[fin]).abs().max())})
+                          "inf_equal": torch.equal(torch.isinf(got_v), torch.isinf(want_v)),
+                          "close": torch.allclose(got_v[fin], want_v[fin], rtol=1e-5, atol=1e-5),
+                          "ids_equal": float((got_i == want_i).float().mean()),
+                          "max_abs_err": float((got_v[fin] - want_v[fin]).abs().max())})
             parts.append(pa[3])
-            return want
+            return want_i, want_v
 
         def kept_dedup(*a_, **k_):
             r = real_dedup(*a_, **k_)
             cands.append(r[0])
             return r
 
-        with plain_version(search, "pq_score_probes", plain_probes), \
-                plain_version(search, "dedup_topk_window", kept_dedup):
+        with plain_version(search, "pq_score_probes_select", plain_select), \
+                plain_version(search, "dedup_ranked", kept_dedup):
             pids, _ = fn(ivq, Q)
         need = needed_step_bytes(ivq, Q, parts, cands, a.FINAL_K)
     finally:
@@ -1728,7 +1737,8 @@ def launch_phase(seed: int, smi: str, wrappers: dict) -> Counter:
              "argument_bytes_real": real_args,
              "argument_bytes_dry": dry["memory"]["argument_bytes"],
              "flops_real": real["flops"], "flops_dry": dry["per_device"]["flops"],
-             "probe_calls_dry": dry["per_device"]["kernels"]["pq_score_probes"]["calls"],
+             "probe_calls_dry":
+                 dry["per_device"]["kernels"]["pq_score_probes_select"]["calls"],
              "collective_bytes_real": real["collective_bytes_total"],
              "collective_bytes_dry": dry["collective_bytes_total"],
              "hbm_bytes_dry": dry["per_device"]["hbm_bytes"],
@@ -1741,7 +1751,8 @@ def launch_phase(seed: int, smi: str, wrappers: dict) -> Counter:
              "needed_share": need_ms / step_ms,
              "plain_scorer_tiles": len(tiles),
              "kernel_max_abs_err": max(t["max_abs_err"] for t in tiles),
-             "kernel_tiles_close": all(t["inf_equal"] and t["close"] for t in tiles),
+             "kernel_tiles_close": all(t["inf_equal"] and t["close"] and t["ids_equal"] >= 0.99
+                                       for t in tiles),
              "ids_agree_plain_scorer": float((pids == ids).float().mean()),
              "peak_rise_bytes": rise, "temp_bytes_dry": dry["memory"]["temp_bytes"],
              "peak_bytes_real": peak, "peak_bytes_dry": dry["memory"]["peak_bytes"],
@@ -1759,15 +1770,15 @@ def launch_phase(seed: int, smi: str, wrappers: dict) -> Counter:
           f"{shard['peak_bytes_dry']} B, ratio {shard['peak_ratio_real_over_dry']:.3f}; "
           f"launches {counts}")
     assert shard["ids_valid"], "the one-shard search returned a -1 or a non-finite score"
-    assert len(tiles) == counts["pq_score_probes"] and shard["kernel_tiles_close"], \
-        f"pq_score_probes against its plain version on the shard's tiles: {tiles}"
+    assert len(tiles) == counts["pq_score_probes_select"] and shard["kernel_tiles_close"], \
+        f"pq_score_probes_select against its plain version on the shard's tiles: {tiles}"
     assert shard["ids_agree_plain_scorer"] >= 0.99, \
         f"ids agree with the plain scorer on {shard['ids_agree_plain_scorer']}"
     assert real_args == shard["argument_bytes_dry"], \
         f"argument bytes: real {real_args}, dry run {shard['argument_bytes_dry']}"
     assert real["flops"] == shard["flops_dry"] == dryrun_flops(True, pmax), \
         f"product FLOPs: real {real['flops']}, dry run {shard['flops_dry']}"
-    assert shard["probe_calls_dry"] == counts["pq_score_probes"], \
+    assert shard["probe_calls_dry"] == counts["pq_score_probes_select"], \
         f"probe scorer: {shard['probe_calls_dry']} dry calls, {counts} launches"
     assert real["collective_bytes_total"] == dry["collective_bytes_total"], \
         "collective bytes differ between the real search and its dry run"
@@ -2193,7 +2204,7 @@ def ann_phases(args):
     from repro_torch.kernels import soar_assign as soar_mod
     from repro_torch.kernels.kmeans_pp import kmeans_pp
     from repro_torch.kernels.lloyd import lloyd_sweep
-    from repro_torch.kernels.pq_score import pq_score, pq_score_probes
+    from repro_torch.kernels.pq_score import pq_score, pq_score_probes, pq_score_probes_select
     from repro_torch.kernels.soar_assign import soar_assign, spill_columns, unit_residuals
     from repro_torch.kernels.tree_route import tree_route
     from repro_torch.kernels.vq_assign import vq_assign
@@ -2209,7 +2220,8 @@ def ann_phases(args):
     from repro_torch.utils import set_f32_precision, topk_first, topk_inner_product
 
     set_f32_precision()
-    wrappers = {"pq_score_probes": pq_score_probes, "vq_assign": vq_assign,
+    wrappers = {"pq_score_probes": pq_score_probes,
+                "pq_score_probes_select": pq_score_probes_select, "vq_assign": vq_assign,
                 "soar_assign": soar_assign, "lloyd_sweep": lloyd_sweep,
                 "tree_route": tree_route, "pq_score": pq_score, "kmeans_pp": kmeans_pp}
 
@@ -2262,7 +2274,7 @@ def ann_phases(args):
 
     mem: dict = {}
     (idx, packed, flat, ids), launches = drive(
-        wrappers, ("lloyd_sweep", "vq_assign", "soar_assign", "pq_score_probes", "kmeans_pp"),
+        wrappers, ("lloyd_sweep", "vq_assign", "soar_assign", "pq_score_probes_select", "kmeans_pp"),
         main_path)
     lloyd_shapes = dict(lloyd_sweep.shapes)
     peak_mem = max(mem["peak_before_warm_search"], mem["warm_search_peak"])
@@ -2271,7 +2283,7 @@ def ann_phases(args):
     sizes = idx.partition_sizes().float()
     gt = true_neighbors(ds.X, ds.Q, k=FINAL_K, chunk=65_536)
     recall = recall_at_k(ids, gt, FINAL_K)
-    with plain_version(search, "pq_score_probes", ref.pq_score_probes_ref):
+    with plain_version(search, "pq_score_probes_select", ref.pq_score_probes_select_ref):
         plain_ids, _ = search_jit_batched(packed, ds.Q, router=flat, **search_kw)
     agree = float((plain_ids == ids).float().mean())
     # the build's assignment against the same shards through the plain versions
@@ -2314,13 +2326,13 @@ def ann_phases(args):
     assert agree >= 0.99, f"ids agree with the plain scorer on {agree} < 0.99"
     assert min(assign_agree) >= 0.999, \
         f"assignments agree with the plain versions on {assign_agree} < 0.999"
-    assert launches["pq_score_probes"] == 2 * tiles, \
-        f"window scoring launches {launches} != one per tile of two searches"
+    assert launches["pq_score_probes_select"] == 2 * tiles, \
+        f"selecting-scorer launches {launches} != one per tile of two searches"
 
     # 4. tree-routed search through the index's router, warm
     search_jit_batched(packed, ds.Q, **search_kw)
     (tids, tsearch_s), tlaunch = drive(
-        wrappers, ("tree_route", "pq_score_probes"),
+        wrappers, ("tree_route", "pq_score_probes_select"),
         lambda: timed(lambda: search_jit_batched(packed, ds.Q, **search_kw)[0]))
     truns = [tsearch_s] + [timed(lambda: search_jit_batched(packed, ds.Q, **search_kw))[1]
                            for _ in range(4)]
@@ -2353,7 +2365,7 @@ def ann_phases(args):
         fgt = keep[fidx.long()].to(torch.int32)
         runs = {}
         for esc in (True, False):
-            fids, flaunch = drive(wrappers, ("tree_route", "pq_score_probes"),
+            fids, flaunch = drive(wrappers, ("tree_route", "pq_score_probes_select"),
                                   lambda: search_jit_batched(packed, ds.Q, filter=bits,
                                                              escalate=esc, **search_kw)[0])
             got = fids[fids >= 0].long()
@@ -2391,10 +2403,10 @@ def ann_phases(args):
     # 7. tombstones inside partitions, searched flat on the card
     tomb = tombstoned(packed, args.seed)
     (tids_t, tomb_s), tomb_launch = drive(
-        wrappers, ("pq_score_probes",),
+        wrappers, ("pq_score_probes_select",),
         lambda: timed(lambda: search_jit_batched(tomb, ds.Q, router=flat, **search_kw)[0]))
     path_launches.update(tomb_launch)
-    with plain_version(search, "pq_score_probes", ref.pq_score_probes_ref):
+    with plain_version(search, "pq_score_probes_select", ref.pq_score_probes_select_ref):
         tplain_t, _ = search_jit_batched(tomb, ds.Q, router=flat, **search_kw)
     live_slots = tomb.sizes[flat.route(ds.Q, TOP_T)[1]].sum(-1)
     enough = live_slots >= 2 * FINAL_K
@@ -2467,7 +2479,7 @@ def ann_phases(args):
         return vidx, out
 
     (aidx, asum), alaunch = drive(
-        wrappers, ("lloyd_sweep", "vq_assign", "soar_assign", "pq_score_probes", "kmeans_pp"),
+        wrappers, ("lloyd_sweep", "vq_assign", "soar_assign", "pq_score_probes_select", "kmeans_pp"),
         lambda: variant(lambda ph: build_ivf_sharded(
             torch.Generator().manual_seed(args.seed), ds.X, C, spill_mode="soar",
             n_spills=2, lam=1.0, anisotropic_T=ANISO_T, rerank="int8", pq_subspaces=M,
@@ -2501,7 +2513,7 @@ def ann_phases(args):
     del aidx, aplain, a, srt
 
     (bidx, bsum), blaunch = drive(
-        wrappers, ("lloyd_sweep", "soar_assign", "pq_score_probes", "kmeans_pp"),
+        wrappers, ("lloyd_sweep", "soar_assign", "pq_score_probes_select", "kmeans_pp"),
         lambda: variant(lambda ph: build_ivf(
             torch.Generator().manual_seed(args.seed), ds.X, C, spill_mode="soar",
             n_spills=1, anisotropic_T=ANISO_T, rerank="f32", pq_subspaces=M,
@@ -2693,7 +2705,7 @@ def ann_phases(args):
         return out, eng
 
     (ssum, eng), slaunch = drive(wrappers, ("vq_assign", "soar_assign", "tree_route",
-                                     "pq_score_probes"), serving)
+                                     "pq_score_probes_select"), serving)
     path_launches.update(slaunch)
     ssum["launches"] = slaunch
     print("serving: " + json.dumps(ssum))
@@ -2872,7 +2884,7 @@ def ann_phases(args):
 
     with tempfile.TemporaryDirectory() as tmp:
         dsum, dlaunch = drive(wrappers, ("vq_assign", "soar_assign", "tree_route",
-                                         "pq_score_probes"), lambda: durability(tmp))
+                                         "pq_score_probes_select"), lambda: durability(tmp))
     path_launches.update(dlaunch)
     dsum["launches"] = dlaunch
     print("durability: " + json.dumps(dsum))
@@ -3148,7 +3160,7 @@ def ann_phases(args):
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
-        fsum, flaunch = drive(wrappers, ("tree_route", "pq_score_probes", "vq_assign",
+        fsum, flaunch = drive(wrappers, ("tree_route", "pq_score_probes_select", "vq_assign",
                                          "soar_assign"), lambda: frontend_phase(tmp))
     path_launches.update(flaunch)
     fsum["launches"] = flaunch
@@ -3424,8 +3436,8 @@ def ann_phases(args):
         for name in ("pq", "tree_f32", "tree_pq"):
             fn, ivf, extra = makers[name]
             with ExitStack() as st:
-                st.enter_context(plain_version(search, "pq_score_probes",
-                                               ref.pq_score_probes_ref))
+                st.enter_context(plain_version(search, "pq_score_probes_select",
+                                               ref.pq_score_probes_select_ref))
                 if "tree" in name:
                     st.enter_context(plain_route())
                 pids, _ = fn(ivf, sd.Q, *extra)
@@ -3511,7 +3523,7 @@ def ann_phases(args):
 
     with tempfile.TemporaryDirectory() as tmp:
         (ssum, (probe25, route16), shards), slaunch = drive(
-            wrappers, ("pq_score_probes", "tree_route", "vq_assign", "soar_assign",
+            wrappers, ("pq_score_probes_select", "tree_route", "vq_assign", "soar_assign",
                        "lloyd_sweep", "kmeans_pp"), lambda: shard_phase(tmp))
     path_launches.update(slaunch)
     ssum["launches"] = slaunch
@@ -3650,6 +3662,36 @@ def ann_phases(args):
            time_ms(lambda: ref.pq_score_probes_ref(*pargs), 3),
            probe_bytes(pargs, got, code_bytes), code_bytes, shape=[BQ, TOP_T, pmax, M],
            probed_code_bytes=code_bytes, m25=m25)
+    # its selecting form on the same probes, the search's keep; beside it
+    # the window form followed by what the selecting form replaces (the id
+    # gather, the mask and torch.topk: the yardstick, never on the path)
+    skeep = min(2 * BUDGET, TOP_T * pmax)
+    sargs = pargs + (packed.part_ids, skeep)
+    si, sv = pq_score_probes_select(*sargs)
+    wi, wv = ref.pq_score_probes_select_ref(*sargs)
+    sfin = torch.isfinite(wv)
+    assert torch.equal(torch.isinf(sv), torch.isinf(wv)), "pq_score_probes_select -inf ranks"
+    assert torch.allclose(sv[sfin], wv[sfin], rtol=1e-5, atol=1e-5), "pq_score_probes_select"
+    sagree = float((si == wi).float().mean())
+    assert sagree >= 0.99, f"pq_score_probes_select ids agree with the plain version on {sagree}"
+
+    def window_chain():
+        w = pq_score_probes(*pargs)
+        wid = packed.part_ids[parts].reshape(BQ, -1)
+        w.masked_fill_(wid < 0, float("-inf"))
+        v, pos = torch.topk(w, skeep, dim=-1)
+        return torch.gather(wid, -1, pos), v
+
+    record("pq_score_probes_select", "src/repro_torch/csrc/pq_score_probes.cu",
+           "none: the search's id gather, mask and top-k over the window",
+           float((sv[sfin] - wv[sfin]).abs().max()),
+           device_ms(lambda: pq_score_probes_select(*sargs), busy),
+           time_ms(lambda: ref.pq_score_probes_select_ref(*sargs), 3),
+           code_bytes + luts.numel() * 4 + parts.numel() * (8 + 4) + psc.numel() * 4
+           + si.numel() * (4 + 4 + 4), code_bytes, shape=[BQ, TOP_T, pmax, M, skeep],
+           ids_agree_plain=sagree, window_chain_ms=device_ms(window_chain, busy),
+           probed_code_bytes=code_bytes)
+    del si, sv, wi, wv
     # kernels 3 and 4: one assignment shard against the trained codebook,
     # and the online inserts' batch of CHURN rows (MutableIVF.add)
     Xs = ds.X[:SHARD].contiguous()

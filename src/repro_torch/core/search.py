@@ -5,19 +5,24 @@ end of this module).
 
 Pipeline per query tile: router probe top-t (flat: one matmul + top-t;
 tree: the two-level `tree_route` kernel) → each query's own (t·pmax)
-candidate window of the padded layout: its point ids are gathered, its
-PQ LUT scores plus the coarse ⟨q, c⟩ term are read by probe id from the
-packed codes (`pq_score_probes`, the CUDA kernel on the card, so the
-window's codes are never gathered) → dedup-by-max over the window → top
+candidate window of the padded layout: its PQ LUT scores plus the coarse
+⟨q, c⟩ term are read by probe id from the packed codes and its top
+multiplicity·rerank_budget candidate slots kept with their ids
+(`pq_score_probes_select`, the CUDA kernel on the card, so the window is
+neither gathered nor written) → dedup-by-max over them → top
 rerank_budget → exact f32 rerank → top final_k. No intermediate scales
 with the database size n. Each tile of `search_jit_batched` is the span
-"search.tile", its stages its children "search.route", "search.gather",
-"search.lut", "search.score", "search.dedup", "search.rerank" and, when
-a filtered search escalates, "search.escalate" (`repro_torch.spans`).
+"search.tile", its stages its children "search.route", "search.lut",
+"search.score" (counting the rows it `selected`), "search.dedup",
+"search.rerank" and, when a filtered search escalates, "search.escalate"
+(`repro_torch.spans`). Without PQ, or where the kept slots outnumber
+what the scorer holds on chip, the window's ids are gathered
+("search.gather") and the window is scored whole.
 
 A filter is an (n,) uint8 bitmap over point ids. With `escalate` True or
-False it is gathered per window, and True adds a second pass one
-router-escalation step up for rows whose first-pass window was thin. With
+False the scorer reads it for the slots it keeps, and True adds a second
+pass one router-escalation step up for rows whose first-pass window was
+thin. With
 `escalate="budget"` (ESCALATE_BUDGET) the index is first cut to the
 filter's eligible slots (`filtered_pack`), so no ineligible slot is
 scored, deduped or reranked, and each tile takes its thin rows, and only
@@ -44,7 +49,7 @@ import torch
 
 from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.router import FlatRouter, check_query_dim
-from repro_torch.kernels.pq_score import pq_score_probes
+from repro_torch.kernels.pq_score import pq_score_probes, pq_score_probes_select, select_fits
 from repro_torch.quant.int8 import int8_dequantize
 from repro_torch.quant.pq import PQCodebook, pq_lut
 from repro_torch.spans import count, recording, span
@@ -123,30 +128,42 @@ def dedup_topk_window(ids: torch.Tensor, scores: torch.Tensor, k: int,
                       multiplicity: int = 2):
     """Candidate-local dedup-by-max + top-k over the last axis.
 
-    1. top multiplicity·k of the raw window — a point holds at most
-       `multiplicity` window slots, so this keeps every copy that could
-       reach the deduped top-k;
-    2. order that small set by (id asc, score desc), so the first slot of
-       each run of equal ids carries the id's best score; the other slots
-       and -1 padding become -inf before the final top-k.
+    1. top multiplicity·k of the raw window (`_window_top`) — a point
+       holds at most `multiplicity` window slots, so this keeps every copy
+       that could reach the deduped top-k;
+    2. `dedup_ranked` over that small set.
 
     Returns (ids (..., k) int32, scores (..., k)); k is clamped to the
     window length.
     """
-    w = ids.shape[-1]
-    raw = min(multiplicity * k, w)
-    if raw < w:
+    return dedup_ranked(*_window_top(ids, scores, min(multiplicity * k, ids.shape[-1])), k)
+
+
+def _window_top(ids: torch.Tensor, scores: torch.Tensor, raw: int):
+    """A window's top `raw` slots by score, descending → (ids, scores)."""
+    if raw < ids.shape[-1]:
         scores, pos = torch.topk(scores, raw, dim=-1)
-        ids = torch.gather(ids, -1, pos)
     else:
-        scores, pos = topk_first(scores, w)
-        ids = torch.gather(ids, -1, pos)
+        scores, pos = topk_first(scores, raw)
+    return torch.gather(ids, -1, pos), scores
+
+
+def dedup_ranked(ids: torch.Tensor, scores: torch.Tensor, k: int):
+    """Dedup-by-max + top-k of a window's top slots, ordered by score
+    descending (the first stage of `dedup_topk_window`, or the selecting
+    probe scorer's output): order them by (id asc, score desc), so the
+    first slot of each run of equal ids carries the id's best score; the
+    other slots and -1 padding become -inf before the final top-k.
+
+    Returns (ids (..., k) int32, scores (..., k)); k is clamped to the
+    set's length.
+    """
     ids_s, pos = torch.sort(ids, dim=-1, stable=True)    # scores stay desc
     scores_s = torch.gather(scores, -1, pos)
     first = torch.ones_like(ids_s, dtype=torch.bool)
     first[..., 1:] = ids_s[..., 1:] != ids_s[..., :-1]
     scores_s = torch.where(first & (ids_s >= 0), scores_s, _NEG_INF)
-    v, pos = topk_first(scores_s, min(k, w))
+    v, pos = topk_first(scores_s, min(k, ids.shape[-1]))
     return torch.gather(ids_s, -1, pos).to(torch.int32), v
 
 
@@ -173,20 +190,30 @@ def _search_pass(packed: PackedIVF, Q: torch.Tensor, router, top_t: int,
     unless `survivors`) counts the unique surviving candidates, capped at
     the stage budget (rerank_budget with PQ, else final_k): the escalation
     signal. route: the router's (scores, parts) when already taken.
+
+    With PQ the scorer's selecting form hands the dedup each query's top
+    multiplicity·rerank_budget slots of its (t·pmax) window, ids and
+    scores, where it holds that many on chip (`select_fits`, a matter of
+    shape); the window is then never gathered, masked or written. Else
+    the window form scores the window and the dedup takes its top.
     """
     if route is None:
         with span("search.route"):
             route = router.route(Q, top_t)
     psc, parts = route                                  # (nq, t)
     survivors = survivors or filter is not None
-    with span("search.gather"):
-        ids = packed.part_ids[parts]                    # (nq, t, pmax)
-        nq, t, pmax = ids.shape
-        ids = ids.reshape(nq, t * pmax)
-        if filter is not None:     # from here on, ids >= 0 marks the valid slots
-            ids = torch.where(filter[ids.clamp(min=0).to(torch.int64)] > 0, ids, -1)
+    nq, t = parts.shape
+    pmax = packed.part_ids.shape[1]
+    keep = min(multiplicity * rerank_budget, t * pmax)
+    codes = packed.part_codes
+    select = codes is not None and select_fits(keep, codes.shape[2])
+    if not select:
+        with span("search.gather"):
+            ids = packed.part_ids[parts].reshape(nq, t * pmax)
+            if filter is not None:     # from here on, ids >= 0 marks the valid slots
+                ids = torch.where(filter[ids.clamp(min=0).to(torch.int64)] > 0, ids, -1)
     surviving = None
-    if packed.part_codes is None:
+    if codes is None:
         # no PQ stage: exact-score the whole window; rerank_budget unused
         with span("search.score"):
             rows = ids.clamp(min=0).to(torch.int64)
@@ -200,13 +227,21 @@ def _search_pass(packed: PackedIVF, Q: torch.Tensor, router, top_t: int,
         return di, dv, surviving
     with span("search.lut"):
         luts = pq_lut(packed.pq, Q)                               # (nq, m, 16)
-    # PQ score + ⟨q, c⟩ up to each partition's extent, then masked by id
-    # (in place: the scorer's output is this pass's own)
-    with span("search.score"):
-        approx = pq_score_probes(luts, packed.part_codes, packed.extent, parts, psc)
-        approx = approx.masked_fill_(ids < 0, _NEG_INF)
+    if select:
+        # PQ score + ⟨q, c⟩ of each candidate slot, its top `keep` kept on chip
+        with span("search.score", selected=nq):
+            ci, cv = pq_score_probes_select(luts, codes, packed.extent, parts, psc,
+                                            packed.part_ids, keep, filter)
+    else:
+        # PQ score + ⟨q, c⟩ up to each partition's extent, then masked by id
+        # (in place: the scorer's output is this pass's own)
+        with span("search.score"):
+            approx = pq_score_probes(luts, codes, packed.extent, parts, psc)
+            approx = approx.masked_fill_(ids < 0, _NEG_INF)
     with span("search.dedup"):
-        bi, bv = dedup_topk_window(ids, approx, rerank_budget, multiplicity)
+        if not select:
+            ci, cv = _window_top(ids, approx, keep)
+        bi, bv = dedup_ranked(ci, cv, rerank_budget)
         if survivors:
             surviving = torch.isfinite(bv).sum(-1)
     with span("search.rerank"):

@@ -35,6 +35,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every C entry; the stream (last) is a pointer too
 SIGNATURES = {
     "pq_score_probes_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "pq_score_probes_select_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _I, _P, _P, _P, _P),
     "assign_prepare_launch": (_P, _I, _I, _P, _P, _P),
     "vq_assign_launch": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "soar_assign_launch": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P),

@@ -3,7 +3,10 @@
 `pq_score_probes` (each query's probed partitions, read by probe id from
 the packed table) replaces `repro/kernels/pq_score.py::pq_score_window_pallas`
 together with the window gather, the coarse term and the padding mask that
-the search wrapped around it; source `csrc/pq_score_probes.cu`. `pq_score`
+the search wrapped around it; source `csrc/pq_score_probes.cu`. Its
+selecting form `pq_score_probes_select` (the search's PQ pass) writes no
+window: it keeps each query's top slots on chip and returns them with
+their ids, so the window's gather, mask and top-k go too. `pq_score`
 (dense: every query × every row) replaces `pq_score_pallas`, source
 `csrc/pq_score.cu`. Both TPU kernels are one-hot MXU contractions.
 
@@ -22,12 +25,17 @@ entries, and stream code tiles past them; it stores along n.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import pq_score_probes_ref, pq_score_ref
+from repro_torch.kernels.ref import (pq_score_probes_ref, pq_score_probes_select_ref,
+                                     pq_score_ref)
 
 SMEM_LIMIT = 232_448      # bytes of shared memory one block may use on sm_90
+SELECT_MAX = 2048         # the most slots a query the selecting form keeps on chip
+_THREADS = 256            # csrc/pq_score_probes.cu::PR_THREADS
 
 
 def pq_score_probes(luts: torch.Tensor, part_codes: torch.Tensor,
@@ -105,6 +113,121 @@ def _launch_probes(luts, part_codes, extent, parts, psc) -> torch.Tensor:
 
 
 pq_score_probes.launches = 0
+
+
+def pq_score_probes_select(luts: torch.Tensor, part_codes: torch.Tensor,
+                           extent: torch.Tensor, parts: torch.Tensor, psc: torch.Tensor,
+                           part_ids: torch.Tensor, keep: int,
+                           filter: Optional[torch.Tensor] = None):
+    """The probe scorer's selecting form: `pq_score_probes`'s arguments,
+    plus part_ids (c, pmax) int32, keep and an optional (n,) uint8 filter
+    over ids → (ids (nq, keep) int32, scores (nq, keep) f32).
+
+    Each query's top `keep` candidates of its (t·pmax) window, by (score
+    descending, window slot j·pmax + i ascending): what `topk_first`
+    gives over `pq_score_probes`'s window once every slot that is no
+    candidate is −inf. A candidate has a finite score, an id ≥ 0 and,
+    given a filter, an id whose byte is not 0. Ranks past the candidates
+    hold (−1, −inf). No window is written: on the card the scorer keeps
+    each query's best slots in shared memory (`select_fits` says which
+    keep and m it holds). CPU tensors take the plain version
+    (`ref.pq_score_probes_select_ref`); meta tensors give the outputs'
+    shapes and report the kernel's bytes (`_select_bytes`).
+    """
+    args = (luts, part_codes, extent, parts, psc, part_ids)
+    every = args if filter is None else args + (filter,)
+    if _build.on_cpu(*every):
+        return pq_score_probes_select_ref(*args, keep, filter)
+    if _build.on_meta(*every):
+        return _meta_select(*args, keep, filter)
+    _build.require_cuda(*every)
+    return _launch_select(*args, keep, filter)
+
+
+def select_fits(keep: int, m: int) -> bool:
+    """Whether the selecting form holds `keep` slots a query on chip at m
+    subspaces: 1 ≤ keep ≤ SELECT_MAX and its block's shared memory (the
+    LUT, the code ring, the candidate buffer) within SMEM_LIMIT."""
+    return 1 <= keep <= SELECT_MAX and _select_smem(keep, m) <= SMEM_LIMIT
+
+
+def _select_smem(keep: int, m: int) -> int:
+    """Shared memory of the selecting scorer's block
+    (`csrc/pq_score_probes.cu`: the LUT, two code chunks, `pr_buffer`
+    keys of 8 bytes, 256 digit counts, `keep` holes), plus 256 bytes for
+    its static state."""
+    chunk = (15 + _THREADS * m + 15) // 16 * 16
+    buf = -(-(keep + max(keep, 1024)) // _THREADS) * _THREADS
+    return m * 16 * 4 + 2 * chunk + buf * 8 + 256 * 4 + keep * 4 + 256
+
+
+def _select_group(nq: int, t: int) -> int:
+    """Probes a block of the selecting scorer takes: enough that the grid
+    is about 640 blocks, one wave of the H100's 132 SMs at the 5 blocks a
+    deep10m or glove tile fits on one, and at most 8. Fewer, longer
+    blocks hand the merge fewer survivors; on an H100 80GB HBM3 at 700 W
+    this rule came within about 1% of the best of 3 to 11 probes a block
+    at glove's, deep10m's and the shard's tile shapes."""
+    return max(1, min(8, -(-nq * t // 640)))
+
+
+def _select_bytes(nq: int, t: int, keep: int, m: int, code_bytes: int,
+                  filtered: bool) -> int:
+    """Bytes the selecting form must move: `_probe_bytes`'s reads, then
+    for each kept slot its id (and filter byte) read and its id and score
+    written; no window."""
+    return (code_bytes + nq * m * 16 * 4 + nq * t * (8 + 4 + 4)
+            + nq * keep * (4 + int(filtered) + 4 + 4))
+
+
+def _checked_select(luts, part_codes, extent, parts, psc, part_ids, keep, filter):
+    parts, psc, dims = _checked(luts, part_codes, extent, parts, psc)
+    _build.check(part_ids, "part_ids", torch.int32, 2)
+    if part_ids.shape != part_codes.shape[:2]:
+        raise ValueError(f"part_ids {tuple(part_ids.shape)} do not match part_codes "
+                         f"{tuple(part_codes.shape)}")
+    if filter is not None:
+        _build.check(filter, "filter", torch.uint8, 1)
+    if not select_fits(keep, dims[3]):
+        raise ValueError(f"keep={keep} at m={dims[3]}: the selecting scorer holds "
+                         f"1 to {SELECT_MAX} slots a query within {SMEM_LIMIT} bytes "
+                         f"of shared memory")
+    return parts, psc, dims
+
+
+def _meta_select(luts, part_codes, extent, parts, psc, part_ids, keep, filter):
+    """The dry run's branch: the outputs and the kernel's scratch on meta,
+    and the kernel's bytes reported (every probe counts pmax code rows, as
+    `_meta_probes`)."""
+    parts, psc, (nq, _, pmax, m, t) = _checked_select(luts, part_codes, extent, parts,
+                                                       psc, part_ids, keep, filter)
+    _build.report("pq_score_probes_select",
+                  _select_bytes(nq, t, keep, m, nq * t * pmax * m, filter is not None))
+    groups = -(-t // _select_group(nq, t))
+    torch.empty((nq, groups * keep), dtype=torch.int64, device="meta")
+    return (torch.empty((nq, keep), dtype=torch.int32, device="meta"),
+            torch.empty((nq, keep), dtype=torch.float32, device="meta"))
+
+
+def _launch_select(luts, part_codes, extent, parts, psc, part_ids, keep, filter):
+    parts, psc, (nq, c, pmax, m, t) = _checked_select(luts, part_codes, extent, parts,
+                                                       psc, part_ids, keep, filter)
+    if part_codes.data_ptr() % 16:
+        raise ValueError("part_codes must be 16-byte aligned (a fresh tensor)")
+    ids = torch.empty((nq, keep), dtype=torch.int32, device=luts.device)
+    scores = torch.empty((nq, keep), dtype=torch.float32, device=luts.device)
+    if nq == 0 or t == 0:
+        return ids.fill_(-1), scores.fill_(float("-inf"))
+    group = _select_group(nq, t)
+    # each block's survivors, (nq, blocks a query, keep) 64-bit keys
+    cand = torch.empty((nq, -(-t // group) * keep), dtype=torch.int64, device=luts.device)
+    _build.launch("pq_score_probes_select_launch", luts, part_codes, extent, parts, psc,
+                  part_ids, filter, nq, c, pmax, m, t, group, keep, cand, ids, scores)
+    pq_score_probes_select.launches += 1
+    return ids, scores
+
+
+pq_score_probes_select.launches = 0
 
 
 def pq_score(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Plain PyTorch versions of every CUDA kernel of the port.
 
 Counterparts of `repro/kernels/ref.py` plus the Lloyd sweep, the
-two-level route, the probe-id window scorer and k-means++ seeding (the
-pick loop and its integer-CDF draw): each computes the same
+two-level route, the probe-id window scorer and its selecting form,
+and k-means++ seeding (the pick loop and its integer-CDF draw): each computes the same
 function as its kernel, in tensor ops, on any device. The kernel
 wrappers take these for CPU tensors; the tests hold them against the JAX
 package, and `chip_smoke.py` holds the kernels against them on the card.
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.utils import pairwise_neg_sqdist_argmin
+from repro_torch.utils import pairwise_neg_sqdist_argmin, topk_first
 
 _ROW_CHUNK = 16_384
 _GATHER_ELEMS = 1 << 25
@@ -75,6 +75,32 @@ def pq_score_probes_ref(luts: torch.Tensor, part_codes: torch.Tensor,
     approx = approx + torch.repeat_interleave(psc, pmax, dim=-1)
     valid = torch.arange(pmax, device=parts.device) < extent[p][..., None]
     return torch.where(valid.reshape(nq, t * pmax), approx, float("-inf"))
+
+
+def pq_score_probes_select_ref(luts: torch.Tensor, part_codes: torch.Tensor,
+                               extent: torch.Tensor, parts: torch.Tensor,
+                               psc: torch.Tensor, part_ids: torch.Tensor, keep: int,
+                               filter=None):
+    """As `pq_score_probes_ref`, plus part_ids (c, pmax), keep and an
+    optional (n,) uint8 filter → (ids (nq, keep) int32, scores (nq, keep)).
+
+    Each query's top `keep` candidates of its window by (score
+    descending, slot ascending): `topk_first` over the window with every
+    slot that is no candidate at −inf. A candidate has a finite score, an
+    id ≥ 0 and, given a filter, an id it passes. Ranks past the
+    candidates hold (−1, −inf).
+    """
+    nq = parts.shape[0]
+    scores = pq_score_probes_ref(luts, part_codes, extent, parts, psc)
+    ids = part_ids[parts.to(torch.int64)].reshape(nq, -1)
+    ok = (ids >= 0) & (scores > float("-inf"))
+    if filter is not None:
+        ok &= filter[ids.clamp(min=0).to(torch.int64)] > 0
+    v, pos = topk_first(scores.masked_fill_(~ok, float("-inf")), min(keep, ids.shape[1]))
+    ids = torch.where(v > float("-inf"), torch.gather(ids, 1, pos), -1).to(torch.int32)
+    short = keep - v.shape[1]
+    return (torch.nn.functional.pad(ids, (0, short), value=-1),
+            torch.nn.functional.pad(v, (0, short), value=float("-inf")))
 
 
 def vq_assign_ref(X: torch.Tensor, C: torch.Tensor):

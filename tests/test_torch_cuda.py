@@ -39,7 +39,8 @@ from repro_torch.core import (build_ivf, build_ivf_sharded, kmr_curve,  # noqa: 
 from repro_torch.core import kmeans  # noqa: E402
 from repro_torch.core.kmeans import train_kmeans  # noqa: E402
 from repro_torch.core.mutable import MutableIVF  # noqa: E402
-from repro_torch.core.router import TreeRouter  # noqa: E402
+from repro_torch.core import search as search_mod  # noqa: E402
+from repro_torch.core.router import FlatRouter, TreeRouter  # noqa: E402
 from repro_torch.core.search import search_numpy  # noqa: E402
 from repro_torch.core.soar import naive_spill_assign  # noqa: E402
 from repro_torch.data.vectors import make_manifold  # noqa: E402
@@ -48,7 +49,8 @@ from repro_torch.kernels import kmeans_pp as kmeans_pp_mod  # noqa: E402
 from repro_torch.kernels import lloyd as lloyd_mod  # noqa: E402
 from repro_torch.kernels.kmeans_pp import kmeans_pp  # noqa: E402
 from repro_torch.kernels.lloyd import lloyd_sweep  # noqa: E402
-from repro_torch.kernels.pq_score import pq_score, pq_score_probes  # noqa: E402
+from repro_torch.kernels.pq_score import (pq_score, pq_score_probes,  # noqa: E402
+                                          pq_score_probes_select)
 from repro_torch.kernels.soar_assign import assign_fused, soar_assign  # noqa: E402
 from repro_torch.kernels.tree_route import tree_route  # noqa: E402
 from repro_torch.kernels.vq_assign import vq_assign  # noqa: E402
@@ -98,6 +100,30 @@ def probe_case(nq, t, c, pmax, m, seed=0):
     return luts, codes, sizes, parts, psc
 
 
+def select_case(nq, t, c, pmax, m, seed=0):
+    """`probe_case`'s inputs, plus part_ids (c, pmax) int32 and an (n,)
+    uint8 filter for the selecting scorer. Ids are unique over the table,
+    -1 past each extent and at one tombstone inside each extent of more
+    than one row (never its last slot). Partition c-1 (full) holds one
+    code in every row, and row 0's first two probes (both c-1) lie far
+    above every other slot, so a cut of row 0 below its live slots falls
+    inside a run of ties; row 1's first probe is c-1, starved (-inf). The
+    filter passes about half the ids."""
+    luts, codes, sizes, parts, psc = probe_case(nq, t, c, pmax, m, seed)
+    rng = np.random.default_rng(seed + 1)
+    codes[c - 1] = codes[c - 1, 0]
+    ids = np.arange(c * pmax, dtype=np.int32).reshape(c, pmax)
+    ids[np.arange(pmax)[None, :] >= sizes[:, None]] = -1
+    for p in range(c):
+        if sizes[p] > 1:
+            ids[p, rng.integers(0, sizes[p] - 1)] = -1
+    psc[0, :2] = 1000.0
+    if nq > 1:
+        parts[1, 0], psc[1, 0] = c - 1, -np.inf
+    bits = (rng.random(c * pmax) < 0.5).astype(np.uint8)
+    return luts, codes, sizes, parts, psc, ids, bits
+
+
 # the CPU cases of test_torch_kernels.py, then a search tile (nq = 128) at
 # t = 1, 40 (the flat probe) and 80 (its escalation), partitions of up to
 # 1,506 rows (odd pmax: every head alignment), m = 160, and m = 25 (the
@@ -118,6 +144,81 @@ def test_pq_score_probes_matches_plain(cuda, nq, t, c, pmax, m):
     fin = torch.isfinite(want)
     assert bool(torch.isfinite(got[fin]).all())
     torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
+# (nq, t, c, pmax, m, keep): a glove tile (m 50, read 2 bytes at a time),
+# a deep10m tile (m 48, 4 at a time, 164 probes), the shard's odd m 25 (1 at
+# a time), keep at the scorer's limit, keep above a narrow window, and the
+# small CPU cases; integer LUTs and coarse scores make every sum exact in
+# any order, so slots tie often and the plain version's bits are the
+# kernel's, ties at the cut and all
+SELECT_CARD_CASES = [(128, 40, 200, 1441, 50, 512), (128, 164, 400, 1400, 48, 512),
+                     (64, 40, 300, 801, 25, 512), (16, 30, 50, 333, 16, 2048),
+                     (8, 5, 10, 33, 16, 300), (3, 4, 6, 7, 5, 5), (5, 2, 4, 1, 16, 7),
+                     (2, 9, 30, 50, 7, 2048)]
+
+
+@pytest.mark.parametrize("filtered", [False, True], ids=["all", "filter"])
+@pytest.mark.parametrize("nq,t,c,pmax,m,keep", SELECT_CARD_CASES)
+def test_pq_score_probes_select_is_its_plain_versions_bits(cuda, nq, t, c, pmax, m, keep,
+                                                           filtered):
+    luts, codes, sizes, parts, psc, ids, bits = select_case(nq, t, c, pmax, m)
+    luts, psc = np.round(luts * 4), np.round(psc * 4)
+    args = [torch.from_numpy(a).to(cuda) for a in (luts, codes, sizes, parts, psc, ids)]
+    filt = torch.from_numpy(bits).to(cuda) if filtered else None
+    n0 = (pq_score_probes_select.launches, pq_score_probes.launches)
+    got_i, got_v = pq_score_probes_select(*args, keep, filt)
+    torch.cuda.synchronize()
+    assert (pq_score_probes_select.launches, pq_score_probes.launches) == (n0[0] + 1, n0[1])
+    want_i, want_v = ref.pq_score_probes_select_ref(*args, keep, filt)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    assert int((got_i[0] >= 0).sum()) == min(keep, int((want_v[0] > float("-inf")).sum()))
+
+
+def test_pq_score_probes_select_refuses_what_it_cannot_hold(cuda):
+    args = [torch.from_numpy(a).to(cuda) for a in select_case(2, 3, 4, 5, 4)[:6]]
+    n0 = pq_score_probes_select.launches
+    for keep in (0, 2049):
+        with pytest.raises(ValueError, match="holds"):
+            pq_score_probes_select(*args, keep)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pq_score_probes_select(*args[:5], args[5].to("meta"), 4)
+    assert pq_score_probes_select.launches == n0
+
+
+@pytest.mark.parametrize("router", ["flat", "tree"])
+@pytest.mark.parametrize("mode", ["plain", "budget"])
+def test_search_through_the_select_on_card_is_the_window_paths_bits(cuda, monkeypatch,
+                                                                    router, mode):
+    """`search_jit_batched` on the card through the selecting scorer gives
+    the window path's bits (both score every slot with the same sum), at
+    both routers, unfiltered and under `escalate="budget"` at 1%; the
+    select path launches the selecting scorer and never the window form."""
+    ds = make_manifold(0, 20_000, 32, nq=256, device="cpu")
+    idx = build_ivf_sharded(torch.Generator().manual_seed(0), ds.X, 64, pq_subspaces=8,
+                            device="cpu", router="tree")
+    packed = pack_ivf(_to(idx, cuda))
+    rt = FlatRouter(packed.centroids) if router == "flat" else packed.router
+    bits = None
+    if mode == "budget":
+        bits = (torch.rand(20_000, generator=torch.Generator().manual_seed(1))
+                < 0.01).to(torch.uint8)
+    kw = dict(top_t=8, final_k=10, rerank_budget=64, bq=128, router=rt, filter=bits,
+              escalate="budget" if mode == "budget" else False)
+    Q = ds.Q.to(cuda)
+    n0 = (pq_score_probes_select.launches, pq_score_probes.launches)
+    si, sv = search_jit_batched(packed, Q, **kw)
+    torch.cuda.synchronize()
+    assert pq_score_probes_select.launches > n0[0] and pq_score_probes.launches == n0[1]
+    with monkeypatch.context() as mp:
+        mp.setattr(search_mod, "select_fits", lambda keep, m: False)
+        wi, wv = search_jit_batched(packed, Q, **kw)
+    torch.cuda.synchronize()
+    assert pq_score_probes.launches > n0[1]
+    assert torch.equal(sv, wv)
+    fin = torch.isfinite(wv)
+    assert torch.equal(si[fin], wi[fin]) and bool((si[~fin] == -1).all())
+    assert float(fin.float().mean()) > 0.9
 
 
 def test_pq_score_probes_refuses_a_misaligned_table(cuda):
@@ -458,7 +559,7 @@ def test_slice_on_card_matches_cpu(cuda):
     ds = make_manifold(0, 20_000, 32, nq=200, device="cpu")
     X, Q = ds.X, ds.Q
     launches0 = (vq_assign.launches, soar_assign.launches, lloyd_sweep.launches,
-                 pq_score_probes.launches)
+                 pq_score_probes_select.launches)
     cpu = build_ivf_sharded(torch.Generator().manual_seed(0), X, 64,
                             pq_subspaces=8, device="cpu")
     # frozen seam: same codebook and PQ, assignment and encode on the card
@@ -493,7 +594,7 @@ def test_slice_on_card_matches_cpu(cuda):
     assert_recall_means_close(draw(cuda), draw("cpu"))
     assert all(b > a for a, b in zip(launches0, (
         vq_assign.launches, soar_assign.launches, lloyd_sweep.launches,
-        pq_score_probes.launches)))
+        pq_score_probes_select.launches)))
 
 
 def test_assign_fused_on_card_matches_cpu(cuda):
@@ -1172,14 +1273,14 @@ def test_sharded_searches_on_card_match_cpu(cuda):
                                              with_router=True, t_route=5), ivq, (srt,)),
     ]
     for i, (fn, ivf, extra) in enumerate(cases):
-        n0 = (pq_score_probes.launches, tree_route.launches)
+        n0 = (pq_score_probes_select.launches, tree_route.launches)
         gi, gs = fn(ivf.to(cuda), Q.to(cuda), *(e.to(cuda) if isinstance(e, torch.Tensor)
                                                or hasattr(e, "_fields") else e
                                                for e in extra))
         torch.cuda.synchronize()
         assert gi.device.type == "cuda"
         if ivf is ivq:
-            assert pq_score_probes.launches > n0[0], i
+            assert pq_score_probes_select.launches > n0[0], i
         if extra and extra[0] is srt:
             assert tree_route.launches > n0[1], i
         wi, ws = fn(ivf, Q, *extra)
@@ -1208,10 +1309,10 @@ def test_sharded_pq_search_on_card_takes_unaligned_shard_blocks(cuda):
         pq_score_probes(luts, plain[1], on_card.extent[1], parts,
                         torch.zeros((2, 1), device=cuda))
     fn = dist_mod.make_distributed_search_pq(top_t=4, rerank_k=32, q_chunk=70)
-    n0 = pq_score_probes.launches
+    n0 = pq_score_probes_select.launches
     gi, _ = fn(on_card, Q.to(cuda))
     torch.cuda.synchronize()
-    assert pq_score_probes.launches > n0
+    assert pq_score_probes_select.launches > n0
     wi, _ = fn(ivq, Q)
     assert (gi.cpu() == wi).float().mean().item() >= 0.999
 
@@ -1323,14 +1424,14 @@ def test_search_contracts_sync_free_on_card(cuda, name):
     c = contracts.REGISTRY[name]
     spec = c.build(cuda)
     spec.fn(*spec.args)                                    # warm
-    before = pq_score_probes.launches
+    before = pq_score_probes_select.launches
     prev = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
     try:
         rec = contracts.record_ops(spec)
     finally:
         torch.cuda.set_sync_debug_mode(prev)
-    assert pq_score_probes.launches > before
+    assert pq_score_probes_select.launches > before
     assert contracts.evaluate(c, spec, rec) == []
 
 

@@ -23,11 +23,12 @@ from repro_torch.kernels import kmeans_pp as kmeans_pp_mod  # noqa: E402
 from repro_torch.kernels.kmeans_pp import kmeans_pp  # noqa: E402
 from repro_torch.kernels import ops as torch_ops  # noqa: E402
 from repro_torch.kernels.lloyd import lloyd_sweep  # noqa: E402
-from repro_torch.kernels.pq_score import pq_score, pq_score_probes  # noqa: E402
+from repro_torch.kernels.pq_score import (pq_score, pq_score_probes,  # noqa: E402
+                                          pq_score_probes_select)
 from repro_torch.kernels.tree_route import tree_route  # noqa: E402
 from repro_torch.kernels.soar_assign import assign_fused, soar_assign  # noqa: E402
 from repro_torch.kernels.vq_assign import vq_assign  # noqa: E402
-from test_torch_cuda import probe_case  # noqa: E402
+from test_torch_cuda import probe_case, select_case  # noqa: E402
 
 
 def _normal(seed, *shape):
@@ -199,9 +200,9 @@ def test_lloyd_sweep_keeps_empty_centroid():
 
 # ------------------------------------------------------------ the wrappers
 def _launch_counts():
-    return (pq_score.launches, pq_score_probes.launches, vq_assign.launches,
-            soar_assign.launches, lloyd_sweep.launches, tree_route.launches,
-            kmeans_pp.launches)
+    return (pq_score.launches, pq_score_probes.launches, pq_score_probes_select.launches,
+            vq_assign.launches, soar_assign.launches, lloyd_sweep.launches,
+            tree_route.launches, kmeans_pp.launches)
 
 
 def test_cpu_path_launches_nothing():
@@ -210,14 +211,16 @@ def test_cpu_path_launches_nothing():
     assign_fused(X, C, lam=1.0, n_spills=1)
     lloyd_sweep(X, C)
     pq_score_probes(*(_t(a) for a in probe_case(2, 3, 4, 5, 3)))
+    *sargs, bits = (_t(a) for a in select_case(2, 3, 4, 5, 3))
+    pq_score_probes_select(*sargs, 4, bits)
     pq_score(_t(_normal(53, 2, 3, 16)), torch.zeros((5, 3), dtype=torch.uint8))
     tree_route(X, C, C[:, None].contiguous(), torch.arange(6, dtype=torch.int32)[:, None], 2)
     kmeans_pp(*_pp_case(2, 40, 8, 6))
     assert _launch_counts() == before
 
 
-@pytest.mark.parametrize("which", ["pq", "vq", "soar", "fused", "lloyd", "dense", "tree",
-                                   "kmeans_pp"])
+@pytest.mark.parametrize("which", ["pq", "select", "vq", "soar", "fused", "lloyd", "dense",
+                                   "tree", "kmeans_pp"])
 def test_non_cpu_tensor_never_falls_back(which):
     """A tensor that is not on the CPU must launch the kernel or raise;
     a meta tensor can do neither, so the wrapper must raise. The probe
@@ -233,6 +236,13 @@ def test_non_cpu_tensor_never_falls_back(which):
             torch.empty(3, dtype=torch.int32, device="meta"),
             torch.empty((1, 2), dtype=torch.int64, device="meta"),
             torch.empty((1, 2), device="meta")),
+        "select": lambda: pq_score_probes_select(
+            torch.zeros((1, 2, 16)),
+            torch.empty((3, 5, 2), dtype=torch.uint8, device="meta"),
+            torch.empty(3, dtype=torch.int32, device="meta"),
+            torch.empty((1, 2), dtype=torch.int64, device="meta"),
+            torch.empty((1, 2), device="meta"),
+            torch.empty((3, 5), dtype=torch.int32, device="meta"), 4),
         "vq": lambda: vq_assign(X, C),
         "soar": lambda: soar_assign(X, X, torch.empty(8, dtype=torch.int32,
                                                       device="meta"), C),

@@ -40,7 +40,10 @@ import torch.distributed as dist  # noqa: E402
 from repro.launch.hlo_analysis import analyze as jax_analyze  # noqa: E402
 from repro_torch.core.distributed import (abstract_sharded_ivf,  # noqa: E402
                                           abstract_sharded_ivf_pq)
-from repro_torch.kernels.pq_score import pq_score_probes  # noqa: E402
+from repro_torch.analysis.contracts import OpRecorder  # noqa: E402
+from repro_torch.core.search import PackedIVF, search_jit_batched  # noqa: E402
+from repro_torch.kernels.pq_score import pq_score_probes, pq_score_probes_select  # noqa: E402
+from repro_torch.quant.pq import PQCodebook  # noqa: E402
 from repro_torch.launch import ann_dryrun  # noqa: E402
 from repro_torch.launch.dryrun import fmt_summary  # noqa: E402
 from repro_torch.launch.op_analysis import OpCounter, analyze  # noqa: E402
@@ -218,6 +221,61 @@ def test_probe_scorer_on_meta_reports_the_kernels_bytes_only():
     assert pq_score_probes.launches == before
 
 
+def test_probe_select_on_meta_reports_its_bytes_and_writes_no_window():
+    nq, t, c, pmax, m, keep = 64, 40, 2_500, 1_000, 25, 512
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    args = (meta((nq, m, 16), torch.float32), meta((c, pmax, m), torch.uint8),
+            meta((c,), torch.int32), meta((nq, t), torch.int64),
+            meta((nq, t), torch.float32), meta((c, pmax), torch.int32))
+    bits = meta((5_000_000,), torch.uint8)
+    before = pq_score_probes_select.launches
+    with OpRecorder() as rec, OpCounter() as counter:
+        ids, vals = pq_score_probes_select(*args, keep, bits)
+    counter.close()
+    assert ids.shape == vals.shape == (nq, keep) and ids.device.type == "meta"
+    assert (ids.dtype, vals.dtype) == (torch.int32, torch.float32)
+    # the probed code rows (pmax a probe on meta), LUTs, int64 probes,
+    # coarse scores, one int32 extent a probe; then a kept slot's id and
+    # filter byte read, its id and score written
+    want = (nq * t * pmax * m + nq * m * 16 * 4 + nq * t * (8 + 4 + 4)
+            + nq * keep * (4 + 1 + 4 + 4))
+    assert counter.kernels == {"pq_score_probes_select": {"calls": 1, "bytes": want,
+                                                          "flops": 0.0}}
+    # its two outputs and the blocks' survivors (4 probes a block, so 2,560
+    # probes make 640 blocks), no window
+    assert sorted(o.shape for o in rec.outputs) == [(nq, keep), (nq, keep),
+                                                    (nq, t // 4 * keep)]
+    assert pq_score_probes_select.launches == before
+
+
+@pytest.mark.parametrize("budget,window", [(1024, False), (1025, True)])
+def test_pq_search_on_meta_allocates_a_window_only_past_the_select(budget, window):
+    """A PQ search on meta tensors: at keep = 2 · 1,024 slots the pass
+    makes no (nq, t·pmax) tensor and launches the selecting scorer; at
+    2 · 1,025, past what it holds on chip, it takes the window path."""
+    nq, c, pmax, m, d, n, top_t = 64, 300, 401, 8, 32, 60_000, 12
+
+    def meta(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    ext = meta((c,), torch.int32)
+    packed = PackedIVF(meta((c, d)), meta((c, pmax), torch.int32),
+                       meta((c, pmax, m), torch.uint8), ext, ext,
+                       PQCodebook(meta((m, 16, d // m))), meta((n, d)))
+    with OpRecorder() as rec, OpCounter() as counter:
+        ids, vals = search_jit_batched(packed, meta((nq, d)), top_t, 10, budget, bq=nq,
+                                       filter=meta((n,), torch.uint8), escalate=False)
+    counter.close()
+    assert ids.shape == vals.shape == (nq, 10)
+    wide = [o for o in rec.outputs if top_t * pmax in o.shape]
+    assert bool(wide) == window
+    assert set(counter.kernels) == ({"pq_score_probes"} if window
+                                    else {"pq_score_probes_select"})
+
+
 def test_probe_scorer_refuses_meta_mixed_with_cpu():
     luts = torch.zeros((2, 4, 16))
     rest = (torch.empty((3, 8, 4), dtype=torch.uint8, device="meta"),
@@ -342,7 +400,10 @@ def test_pq_single_matches_the_committed_jax_artifact(port_cells):
     # the file keeps compute_s, at JAX's 197e12 FLOP/s, to six digits
     assert float(f"{got['per_device']['flops'] / 197e12:.6g}") == \
         want["roofline"]["compute_s"]
-    assert got["per_device"]["kernels"]["pq_score_probes"]["calls"] == 1024 // 64
+    # the search's PQ pass launches the selecting scorer, one a 64-query tile
+    kernels = got["per_device"]["kernels"]
+    assert kernels["pq_score_probes_select"]["calls"] == 1024 // 64
+    assert "pq_score_probes" not in kernels
 
 
 def test_roofline_terms_are_the_h100s(monkeypatch, tmp_path):

@@ -19,8 +19,10 @@ from repro_torch.serve.api import SearchParams
 from repro_torch.serve.engine import AnnEngine
 from repro_torch.spans import span, timed
 
-TILE_STAGES = {"search.route", "search.gather", "search.lut", "search.score",
-               "search.dedup", "search.rerank"}
+# a PQ pass's stages: its scorer keeps each row's top slots, so no window
+# of ids is gathered ("search.gather" is the window path's)
+TILE_STAGES = {"search.route", "search.lut", "search.score", "search.dedup",
+               "search.rerank"}
 PHASES = {"kmeans", "spill_assign", "router", "csr", "pq_train", "encode", "rerank"}
 
 
@@ -192,6 +194,8 @@ def test_one_search_request_shares_one_request_id(engine, data):
         assert {s.name for s in children(recs, tile)} == TILE_STAGES
         for s in children(recs, tile):
             assert tile.start_ns <= s.start_ns <= s.end_ns <= tile.end_ns
+        (score,) = [s for s in children(recs, tile) if s.name == "search.score"]
+        assert score.counts == {"selected": 16}         # every row of the tile
 
 
 def test_escalation_is_a_span_with_its_counts(engine, data):
