@@ -62,7 +62,8 @@ just after, and fails if one of its kernels was never launched:
      agreeing on >= 99.9% of rows with assign_shards through the plain vq
      and soar versions, and the int8 codes and scales of the first 65,536
      rows equal to the CPU quantization's (kernels: Lloyd, vq_assign,
-     soar_assign, pq_score_probes_select, kmeans_pp);
+     soar_assign, pq_score_probes_select, kmeans_pp; the search reranks
+     the int8 rows on int8_rerank);
  10. variant B, the monolithic build on anisotropic primaries:
      build_ivf(spill_mode="soar", n_spills=1, anisotropic_T=0.2,
      rerank="f32", pq_subspaces=50) over all 1,000,000 rows, then the flat
@@ -228,7 +229,10 @@ just after, and fails if one of its kernels was never launched:
      t_route its search gives it, with phase 16's launches of the route),
      with its wrapper's and the whole router call's host
      microseconds per call (host clock over many calls, no synchronisation
-     between them); with --parent DIR (a checkout of the parent commit,
+     between them); the int8 rerank on one tile's budget (the dedup of the
+     select's slots) over the main rows quantized, with the f32 rerank over
+     the rows dequantized beside it (f32_chain_ms, the search's f32 path:
+     the yardstick); with --parent DIR (a checkout of the parent commit,
      unpacked beside this one) the parent's route and dense kernels are
      built from DIR and timed on the same inputs in the same way
      ("parent_ms", null without it); the vq and soar records also give
@@ -2196,12 +2200,13 @@ def ann_phases(args):
         make_distributed_search_pq, make_replicated_search, make_sharded_assign,
         save_sharded, shard_filters, shard_generator, sharded_from_indexes,
         sharded_from_indexes_pq, stack_tree_routers)
-    from repro_torch.core.search import pad_queries, search_numpy
+    from repro_torch.core.search import dedup_ranked, pad_queries, search_numpy
     from repro_torch.core.router import FlatRouter
     from repro_torch.data.vectors import make_manifold
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import lloyd as lloyd_mod
     from repro_torch.kernels import soar_assign as soar_mod
+    from repro_torch.kernels.int8_rerank import int8_rerank
     from repro_torch.kernels.kmeans_pp import kmeans_pp
     from repro_torch.kernels.lloyd import lloyd_sweep
     from repro_torch.kernels.pq_score import pq_score, pq_score_probes, pq_score_probes_select
@@ -2209,7 +2214,7 @@ def ann_phases(args):
     from repro_torch.kernels.tree_route import tree_route
     from repro_torch.kernels.vq_assign import vq_assign
     from repro_torch.quant import anisotropic as aniso_mod
-    from repro_torch.quant.int8 import int8_quantize
+    from repro_torch.quant.int8 import int8_dequantize, int8_quantize
     from repro_torch.quant.pq import PQCodebook, pq_lut
     from repro_torch.serve.api import (DeadlineExceededError, FrontendClosedError,
                                        OverloadedError, SearchParams)
@@ -2223,7 +2228,8 @@ def ann_phases(args):
     wrappers = {"pq_score_probes": pq_score_probes,
                 "pq_score_probes_select": pq_score_probes_select, "vq_assign": vq_assign,
                 "soar_assign": soar_assign, "lloyd_sweep": lloyd_sweep,
-                "tree_route": tree_route, "pq_score": pq_score, "kmeans_pp": kmeans_pp}
+                "tree_route": tree_route, "pq_score": pq_score, "kmeans_pp": kmeans_pp,
+                "int8_rerank": int8_rerank}
 
     # 1. device
     smi = subprocess.run(
@@ -3691,7 +3697,35 @@ def ann_phases(args):
            + si.numel() * (4 + 4 + 4), code_bytes, shape=[BQ, TOP_T, pmax, M, skeep],
            ids_agree_plain=sagree, window_chain_ms=device_ms(window_chain, busy),
            probed_code_bytes=code_bytes)
-    del si, sv, wi, wv
+    # the int8 rerank of the same tile's budget (the dedup of the select's
+    # slots) over the main rows quantized; beside it the f32 rerank over
+    # the rows dequantized (gather, product, mask, stable sort, gather: the
+    # yardstick, what the search runs for f32 rows)
+    bi, bv = dedup_ranked(si, sv, BUDGET)
+    rows8 = int8_quantize(ds.X)
+    deq = int8_dequantize(rows8)
+    ri8, rv8 = int8_rerank(Qb, rows8, bi, bv, FINAL_K)
+    wi8, wv8 = ref.int8_rerank_ref(Qb, rows8.q, rows8.scale, bi, bv, FINAL_K)
+    assert torch.allclose(rv8, wv8, rtol=1e-5, atol=1e-6), "int8_rerank"
+    ragree = float((ri8 == wi8).float().mean())
+    assert ragree >= 0.99, f"int8_rerank ids agree with the plain version on {ragree}"
+    valid = int(torch.isfinite(bv).sum())
+
+    def f32_chain():
+        ex = torch.einsum("qbd,qd->qb", deq[bi.clamp(min=0).long()], Qb)
+        ex = torch.where(torch.isfinite(bv), ex, float("-inf"))
+        v, pos = topk_first(ex, FINAL_K)
+        return torch.gather(bi, -1, pos), v
+
+    record("int8_rerank", "src/repro_torch/csrc/int8_rerank.cu",
+           "none: the search's f32 rerank over a dequantized table",
+           float((rv8 - wv8).abs().max()),
+           device_ms(lambda: int8_rerank(Qb, rows8, bi, bv, FINAL_K), busy),
+           time_ms(lambda: ref.int8_rerank_ref(Qb, rows8.q, rows8.scale, bi, bv, FINAL_K), 3),
+           valid * (D + 4 + 4) + Qb.numel() * 4 + ri8.numel() * 8, 2.0 * valid * D,
+           shape=[BQ, BUDGET, D, FINAL_K], valid_candidates=valid, ids_agree_plain=ragree,
+           f32_chain_ms=device_ms(f32_chain, busy))
+    del si, sv, wi, wv, bi, bv, rows8, deq, ri8, rv8, wi8, wv8
     # kernels 3 and 4: one assignment shard against the trained codebook,
     # and the online inserts' batch of CHURN rows (MutableIVF.add)
     Xs = ds.X[:SHARD].contiguous()

@@ -307,10 +307,20 @@ def _ivf_state(idx):
     return "IVFIndex", meta, arrays
 
 
+def _rerank_state(rerank) -> dict:
+    """A packed or mutable index's rerank table: f32 rows under "rerank",
+    int8 codes and scales under "rerank_int8.q" / "rerank_int8.scale"
+    (the IVFIndex names; a JAX reader opens only the f32 form)."""
+    from repro_torch.quant.int8 import Int8Data
+    if isinstance(rerank, Int8Data):
+        return {"rerank_int8.q": rerank.q, "rerank_int8.scale": rerank.scale}
+    return {"rerank": rerank}
+
+
 def _mutable_state(mut):
     rmeta, rarr = _router_state(mut.router)
     arrays = {"centroids": mut.centroids, "part_ids": mut.part_ids,
-              "sizes": mut.sizes, "rerank": mut.rerank,
+              "sizes": mut.sizes, **_rerank_state(mut.rerank),
               "assignments": mut.assignments,
               "alive": mut.alive.to(torch.uint8)}
     if mut.part_codes is not None:
@@ -332,7 +342,7 @@ def _packed_state(p):
     part_ids at load time."""
     rmeta, rarr = _router_state(p.router)
     arrays = {"centroids": p.centroids, "part_ids": p.part_ids,
-              "sizes": p.sizes, "rerank": p.rerank}
+              "sizes": p.sizes, **_rerank_state(p.rerank)}
     if p.part_codes is not None:
         arrays["part_codes"] = p.part_codes
     arrays.update(_pq_state(p.pq))

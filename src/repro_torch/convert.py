@@ -35,10 +35,9 @@ from repro_torch.utils import Device, resolve_device
 
 FIELDS = ("centroids", "starts", "point_ids", "codes", "pq.centers",
           "assignments", "n_points", "spill_mode", "lam")
-PACKED_FIELDS = ("centroids", "part_ids", "part_codes", "sizes", "pq.centers",
-                 "rerank")
+PACKED_FIELDS = ("centroids", "part_ids", "part_codes", "sizes", "pq.centers")
 MUTABLE_FIELDS = ("centroids", "pq.centers", "part_ids", "part_codes", "sizes",
-                  "rerank", "assignments", "alive", "n_total", "n_dead_slots",
+                  "assignments", "alive", "n_total", "n_dead_slots",
                   "n_soft_deleted", "spill_mode", "lam", "n_spills",
                   "compact_threshold")
 
@@ -72,6 +71,17 @@ def _missing(fields: Mapping[str, object], keys) -> None:
     missing = [k for k in keys if k not in fields]
     if missing:
         raise KeyError(f"index fields missing: {missing}")
+
+
+def _rerank_rows(fields: Mapping[str, object], t):
+    """A packed or mutable index's rerank table: int8 codes and scales
+    under rerank_int8.q / rerank_int8.scale where given (the port's int8
+    index; the JAX package holds f32 rows), else the f32 rows under
+    rerank."""
+    if fields.get("rerank_int8.q") is not None:
+        return Int8Data(t("rerank_int8.q", torch.int8), t("rerank_int8.scale", torch.float32))
+    _missing(fields, ("rerank",))
+    return t("rerank", torch.float32)
 
 
 def index_from_numpy(fields: Mapping[str, object], device: Device = None) -> IVFIndex:
@@ -117,7 +127,8 @@ def packed_from_numpy(fields: Mapping[str, object], device: Device = None) -> Pa
 
     Keys: centroids (c, d) f32, part_ids (c, pmax) int (-1 at padding and
     at removed points), part_codes (c, pmax, m) uint8 or None, sizes (c,)
-    int (live ids), pq.centers (m, 16, s) f32 or None, rerank (n, d) f32;
+    int (live ids), pq.centers (m, 16, s) f32 or None, rerank (n, d) f32
+    (or rerank_int8.q (n, d) int8 with rerank_int8.scale (n,) f32);
     optional router as in `index_from_numpy`. The extent of each partition
     (its last slot holding an id >= 0, plus one) is computed from part_ids.
     """
@@ -129,7 +140,7 @@ def packed_from_numpy(fields: Mapping[str, object], device: Device = None) -> Pa
         centroids=t("centroids", torch.float32), part_ids=ids,
         part_codes=t("part_codes", torch.uint8), sizes=t("sizes", torch.int32),
         extent=slot_extent(ids), pq=PQCodebook(centers) if centers is not None else None,
-        rerank=t("rerank", torch.float32), router=_router(fields, t))
+        rerank=_rerank_rows(fields, t), router=_router(fields, t))
 
 
 def mutable_from_numpy(fields: Mapping[str, object], device: Device = None) -> MutableIVF:
@@ -137,7 +148,8 @@ def mutable_from_numpy(fields: Mapping[str, object], device: Device = None) -> M
 
     Keys: centroids (c, d) f32, pq.centers (m, 16, s) f32 or None, part_ids
     (c, cap) int, part_codes (c, cap, m) uint8 or None, sizes (c,) int (the
-    fill offset), rerank (cap_n, d) f32, assignments (cap_n, a) int, alive
+    fill offset), rerank (cap_n, d) f32 (or rerank_int8.q (cap_n, d) int8
+    with rerank_int8.scale (cap_n,) f32), assignments (cap_n, a) int, alive
     (cap_n,) bool, n_total, n_dead_slots, n_soft_deleted, spill_mode, lam,
     n_spills, compact_threshold; optional wal_seq (0 when absent) and router
     as in `index_from_numpy`. Capacities are kept as they are, so both
@@ -152,7 +164,7 @@ def mutable_from_numpy(fields: Mapping[str, object], device: Device = None) -> M
         spill_mode=str(fields["spill_mode"]), lam=float(fields["lam"]),
         n_spills=int(fields["n_spills"]),
         part_ids=t("part_ids", torch.int32), part_codes=t("part_codes", torch.uint8),
-        sizes=t("sizes", torch.int32), rerank=t("rerank", torch.float32),
+        sizes=t("sizes", torch.int32), rerank=_rerank_rows(fields, t),
         assignments=t("assignments", torch.int32), alive=t("alive", torch.bool),
         n_total=int(fields["n_total"]), n_dead_slots=int(fields["n_dead_slots"]),
         n_soft_deleted=int(fields["n_soft_deleted"]),

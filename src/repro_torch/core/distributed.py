@@ -63,6 +63,7 @@ from repro_torch.core.router import FlatRouter, TreeRouter
 from repro_torch.core.search import (PackedIVF, pack_ivf, search_jit_batched,
                                      slot_extent)
 from repro_torch.kernels.soar_assign import assign_fused
+from repro_torch.quant.int8 import rerank_f32
 from repro_torch.quant.pq import PQCodebook
 from repro_torch.utils import Device, as_tensor, topk_first
 
@@ -160,10 +161,10 @@ def _resolve_shard(idx):
 
 def _stack_shards(indexes):
     """The shared stacker of `sharded_from_indexes(_pq)`: resolve mutable
-    shards, pack, pad ids to the common pmax (-1) and rerank rows to the
-    largest local id space (zero rows: a padded id is in no partition
-    slot, so it is unreachable), and accumulate the global-id bases, on
-    the first shard's device. Returns (packed, centroids, ids, sizes,
+    shards, pack, pad ids to the common pmax (-1) and rerank rows (f32;
+    int8 rows dequantized) to the largest local id space (zero rows: a
+    padded id is in no partition slot, so it is unreachable), and
+    accumulate the global-id bases, on the first shard's device. Returns (packed, centroids, ids, sizes,
     rerank, bases), the last five stacked."""
     resolved = [_resolve_shard(i) for i in indexes]
     packed = [pack_ivf(i) for i in resolved]
@@ -173,7 +174,7 @@ def _stack_shards(indexes):
     dev = packed[0].centroids.device
     ids = torch.stack([F.pad(pk.part_ids.to(dev), (0, pmax - pk.part_ids.shape[1]),
                              value=-1) for pk in packed])
-    rerank = torch.stack([F.pad(pk.rerank.to(dev), (0, 0, 0, nmax - nl))
+    rerank = torch.stack([F.pad(rerank_f32(pk.rerank).to(dev), (0, 0, 0, nmax - nl))
                           for pk, nl in zip(packed, n_locals)])
     cents = torch.stack([pk.centroids.to(dev) for pk in packed])
     sizes = torch.stack([pk.sizes.to(dev) for pk in packed])

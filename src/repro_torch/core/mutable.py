@@ -21,6 +21,10 @@ padded to a capacity that grows geometrically, so appends are amortized
 O(batch). Point ids are stable across every mutation; id space is
 append-only.
 
+The rerank rows are the built index's: f32 rows, or, for an index built
+with `rerank="int8"`, (n, d) int8 codes and (n,) f32 scales, held so
+(no f32 copy; `add` quantizes what it inserts, `int8_quantize`).
+
 Search serves from snapshots: `pack()` → `PackedIVF` for the fixed-budget
 engine, whose ids, codes and rerank rows are the index's own tensors
 (a view: the next mutation changes it), and `to_ivf_index()` → the CSR
@@ -56,16 +60,19 @@ from repro_torch.core.build import build_ivf_sharded, spill_plan
 from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.search import PackedIVF, slot_extent
 from repro_torch.kernels.soar_assign import assign_fused
-from repro_torch.quant.int8 import int8_dequantize
+from repro_torch.quant.int8 import Int8Data, int8_quantize, rerank_f32, rerank_table
 from repro_torch.quant.pq import PQCodebook, pq_encode
 from repro_torch.utils import as_tensor
 
 CAPACITY_SLACK = 1.25    # partition-row capacity over the largest row at wrap time
 
 
-def _grow_rows(arr: torch.Tensor, n_new: int, fill) -> torch.Tensor:
+def _grow_rows(arr, n_new: int, fill):
     """Geometric row growth to at least n_new rows (a new tensor when it
-    grows, `arr` itself otherwise)."""
+    grows, `arr` itself otherwise); an Int8Data grows its codes and scales
+    alike."""
+    if isinstance(arr, Int8Data):
+        return Int8Data(_grow_rows(arr.q, n_new, 0), _grow_rows(arr.scale, n_new, 0.0))
     if arr.shape[0] >= n_new:
         return arr
     cap = max(n_new, 2 * arr.shape[0], 64)
@@ -123,7 +130,8 @@ class MutableIVF:
     part_ids: torch.Tensor              # (c, cap) int32; -1 = empty/tombstone
     part_codes: Optional[torch.Tensor]  # (c, cap, m) uint8
     sizes: torch.Tensor                 # (c,) int32 fill offset (dead slots incl.)
-    rerank: torch.Tensor                # (cap_n, d) f32 by point id
+    rerank: Union[torch.Tensor, Int8Data]  # (cap_n, d) f32 by point id, or int8
+                                           # codes (cap_n, d) + scales (cap_n,)
     assignments: torch.Tensor           # (cap_n, a) int32; -1 rows dead/unused
     alive: torch.Tensor                 # (cap_n,) bool
     n_total: int                        # high-water point id (append-only)
@@ -156,8 +164,8 @@ class MutableIVF:
     @classmethod
     def from_index(cls, idx: IVFIndex, compact_threshold: float = 0.25) -> "MutableIVF":
         """Wrap a built IVFIndex (any build function) into the mutable layout, on
-        the index's device. The rerank rows are the index's own until the
-        first `add` grows them."""
+        the index's device. The rerank rows are the index's own (f32 rows,
+        or int8 codes and scales) until the first `add` grows them."""
         c = idx.n_partitions
         dev = idx.centroids.device
         sizes = idx.partition_sizes().to(torch.int32)
@@ -173,16 +181,18 @@ class MutableIVF:
         part_ids[part, pos] = idx.point_ids
         if m:
             part_codes[part, pos] = idx.codes
-        data = idx.rerank_f32
-        if data is None:
-            data = int8_dequantize(idx.rerank_int8)
+        if idx.rerank_f32 is not None:
+            data = idx.rerank_f32.to(torch.float32).contiguous()
+        else:
+            data = Int8Data(idx.rerank_int8.q.contiguous(),
+                            idx.rerank_int8.scale.to(torch.float32).contiguous())
         a = idx.assignments.shape[1]
         _, n_spills = spill_plan(idx.spill_mode, idx.lam, a - 1)
         return cls(
             centroids=idx.centroids.to(torch.float32), pq=idx.pq,
             spill_mode=idx.spill_mode, lam=idx.lam, n_spills=n_spills,
             part_ids=part_ids, part_codes=part_codes, sizes=sizes,
-            rerank=data.to(torch.float32).contiguous(),
+            rerank=data,
             assignments=idx.assignments.to(torch.int32).clone(),
             alive=torch.ones(idx.n_points, dtype=torch.bool, device=dev),
             n_total=idx.n_points, compact_threshold=compact_threshold,
@@ -307,7 +317,8 @@ class MutableIVF:
         the (batch · a) entries are grouped by partition with a stable sort
         (the order of the JAX package's counting sort) and appended at each
         partition's fill offset; PQ codes encode the residual to each
-        assignment's centroid, as at build time.
+        assignment's centroid, as at build time. Int8 rerank rows store the
+        batch's `int8_quantize`.
         """
         dev = self.device
         X_new = as_tensor(X_new, dev, torch.float32)
@@ -324,14 +335,19 @@ class MutableIVF:
         ids = torch.arange(self.n_total, self.n_total + b, dtype=torch.int32,
                            device=dev)
         cap_parts0 = self.part_ids.shape[1]
-        cap_rerank0 = self.rerank.shape[0]
+        cap_rerank0 = rerank_table(self.rerank).shape[0]
 
         # per-point state (geometric growth keeps appends amortized O(b))
         need = self.n_total + b
         self.rerank = _grow_rows(self.rerank, need, 0.0)
         self.assignments = _grow_rows(self.assignments, need, -1)
         self.alive = _grow_rows(self.alive, need, False)
-        self.rerank[self.n_total:need] = X_new
+        if isinstance(self.rerank, Int8Data):
+            q8 = int8_quantize(X_new)
+            self.rerank.q[self.n_total:need] = q8.q
+            self.rerank.scale[self.n_total:need] = q8.scale
+        else:
+            self.rerank[self.n_total:need] = X_new
         self.assignments[self.n_total:need] = A
         self.alive[self.n_total:need] = True
         self._alive_epoch += 1
@@ -365,7 +381,7 @@ class MutableIVF:
         self.sizes = new_sizes
         self.n_total = need
         if (self.part_ids.shape[1] != cap_parts0
-                or self.rerank.shape[0] != cap_rerank0):
+                or rerank_table(self.rerank).shape[0] != cap_rerank0):
             self._invalidate()       # capacity grew → the snapshot's tensors are old
         else:
             self._mark_dirty(torch.unique(sp))
@@ -563,6 +579,9 @@ class MutableIVF:
         """
         if self._csr is not None:
             return self._csr
+        n = self.n_total
+        r = self.rerank
+        r8 = Int8Data(r.q[:n], r.scale[:n]) if isinstance(r, Int8Data) else None
         c = self.part_ids.shape[0]
         mask = self.part_ids >= 0
         starts = torch.zeros(c + 1, dtype=torch.int64, device=self.device)
@@ -571,8 +590,8 @@ class MutableIVF:
             centroids=self.centroids, starts=starts,
             point_ids=self.part_ids[mask],
             codes=self.part_codes[mask] if self.part_codes is not None else None,
-            pq=self.pq, rerank_int8=None,
-            rerank_f32=self.rerank[:self.n_total],
+            pq=self.pq, rerank_int8=r8,
+            rerank_f32=None if r8 is not None else r[:n],
             assignments=self.assignments[:self.n_total],
             n_points=self.n_total, spill_mode=self.spill_mode, lam=self.lam,
             router=self._serving_router())
@@ -581,10 +600,11 @@ class MutableIVF:
     def rebuild_reference(self, gen: Optional[torch.Generator] = None) -> IVFIndex:
         """From-scratch build of the CURRENT live rows (ids renumbered
         0.. in id order) against the same frozen codebook, PQ and router:
-        the mutation-equivalence comparator."""
+        the mutation-equivalence comparator. Int8 rows are dequantized and
+        the rebuild keeps f32 rows, as the JAX package's f32 table does."""
         live = torch.nonzero(self.alive[:self.n_total]).reshape(-1)
         return build_ivf_sharded(
-            gen, self.rerank[live], self.centroids.shape[0],
+            gen, rerank_f32(self.rerank)[live], self.centroids.shape[0],
             spill_mode=self.spill_mode, lam=self.lam,
             n_spills=max(self.n_spills, 1), codebook=self.centroids,
             pq=self.pq, router=self.router, device=self.device)

@@ -10,11 +10,17 @@ candidate window of the padded layout: its PQ LUT scores plus the coarse
 multiplicity·rerank_budget candidate slots kept with their ids
 (`pq_score_probes_select`, the CUDA kernel on the card, so the window is
 neither gathered nor written) → dedup-by-max over them → top
-rerank_budget → exact f32 rerank → top final_k. No intermediate scales
-with the database size n. Each tile of `search_jit_batched` is the span
+rerank_budget → exact rerank → top final_k. No intermediate scales
+with the database size n. The rerank rows are f32 or, for an index built
+with `rerank="int8"`, int8 codes with a scale a row, held so on the
+device: a candidate then scores ⟨q, x₈⟩ summed in f32 times its scale,
+and the rerank and its top final_k are one launch (`int8_rerank`, the
+CUDA kernel on the card). Each tile of `search_jit_batched` is the span
 "search.tile", its stages its children "search.route", "search.lut",
 "search.score" (counting the rows it `selected`), "search.dedup",
-"search.rerank" and, when a filtered search escalates, "search.escalate"
+"search.rerank" (counting the valid candidates, `rows`, and the bytes
+of rerank rows and scales it read, `row_bytes`, over a tile's queries)
+and, when a filtered search escalates, "search.escalate"
 (`repro_torch.spans`). Without PQ, or where the kept slots outnumber
 what the scorer holds on chip, the window's ids are gathered
 ("search.gather") and the window is scored whole.
@@ -49,8 +55,10 @@ import torch
 
 from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.router import FlatRouter, check_query_dim
+from repro_torch.kernels.int8_rerank import int8_rerank
 from repro_torch.kernels.pq_score import pq_score_probes, pq_score_probes_select, select_fits
-from repro_torch.quant.int8 import int8_dequantize
+from repro_torch.kernels.ref import int8_scores_ref
+from repro_torch.quant.int8 import Int8Data, rerank_table
 from repro_torch.quant.pq import PQCodebook, pq_lut
 from repro_torch.spans import count, recording, span
 from repro_torch.utils import as_tensor, topk_first
@@ -69,7 +77,8 @@ class PackedIVF(NamedTuple):
     extent:     (c,) int32 slot extent per partition: its last slot holding
                 an id >= 0, plus one. The probe scorer reads the slots below
                 it, and the search masks what it scored by id.
-    rerank:     (n, d) f32
+    rerank:     (n, d) f32 rows, or an Int8Data: (n, d) int8 codes and (n,)
+                f32 scales
     router:     the index's probe router (core/router.py); None → flat
     """
     centroids: torch.Tensor
@@ -78,8 +87,18 @@ class PackedIVF(NamedTuple):
     sizes: torch.Tensor
     extent: torch.Tensor
     pq: Optional[PQCodebook]
-    rerank: torch.Tensor
+    rerank: Union[torch.Tensor, Int8Data]
     router: Optional[object] = None
+
+
+def _exact_scores(rerank: Union[torch.Tensor, Int8Data], Q: torch.Tensor,
+                 ids: torch.Tensor) -> torch.Tensor:
+    """Q (nq, d), ids (nq, w) ≥ -1 → ⟨q, row⟩ (nq, w), a -1 scored as row
+    0: f32 rows by one product, int8 rows by `int8_scores_ref`."""
+    rows = ids.clamp(min=0).to(torch.int64)
+    if isinstance(rerank, Int8Data):
+        return int8_scores_ref(Q, rerank.q, rerank.scale, rows)
+    return torch.einsum("qwd,qd->qw", rerank[rows], Q)
 
 
 def slot_extent(part_ids: torch.Tensor) -> torch.Tensor:
@@ -95,8 +114,8 @@ def pack_ivf(index: IVFIndex, pmax: Optional[int] = None) -> PackedIVF:
 
     pmax caps the partition width (default: the largest partition); an
     explicit 0 packs all -1 sentinels at width 1. The rerank table is the
-    index's f32 rows, or its int8 rows dequantized. Every partition's slots
-    are live up to its size, so its extent is its size.
+    index's own: its f32 rows, or its int8 codes and scales. Every
+    partition's slots are live up to its size, so its extent is its size.
     """
     c = index.n_partitions
     dev = index.point_ids.device
@@ -116,9 +135,7 @@ def pack_ivf(index: IVFIndex, pmax: Optional[int] = None) -> PackedIVF:
     ids[part[keep], pos[keep]] = index.point_ids[keep]
     if m:
         codes[part[keep], pos[keep]] = index.codes[keep]
-    rerank = index.rerank_f32
-    if rerank is None:
-        rerank = int8_dequantize(index.rerank_int8)
+    rerank = index.rerank_f32 if index.rerank_f32 is not None else index.rerank_int8
     sizes = sizes.clamp(max=pmax).to(torch.int32)
     return PackedIVF(index.centroids, ids, codes, sizes, sizes, index.pq,
                      rerank, index.router)
@@ -180,7 +197,7 @@ def _pad_topk(ids: torch.Tensor, vals: torch.Tensor, k: int):
 def _search_pass(packed: PackedIVF, Q: torch.Tensor, router, top_t: int,
                  final_k: int, rerank_budget: int, multiplicity: int = 2,
                  filter: Optional[torch.Tensor] = None, route=None,
-                 survivors: bool = False):
+                 survivors: bool = False, rows: Optional[int] = None):
     """One fixed-top_t candidate-local pass → (ids, scores (nq, final_k),
     surviving).
 
@@ -190,6 +207,8 @@ def _search_pass(packed: PackedIVF, Q: torch.Tensor, router, top_t: int,
     unless `survivors`) counts the unique surviving candidates, capped at
     the stage budget (rerank_budget with PQ, else final_k): the escalation
     signal. route: the router's (scores, parts) when already taken.
+    rows: the queries among Q's rows, the first ones (None: all), over
+    which the rerank counts what it read.
 
     With PQ the scorer's selecting form hands the dedup each query's top
     multiplicity·rerank_budget slots of its (t·pmax) window, ids and
@@ -216,8 +235,7 @@ def _search_pass(packed: PackedIVF, Q: torch.Tensor, router, top_t: int,
     if codes is None:
         # no PQ stage: exact-score the whole window; rerank_budget unused
         with span("search.score"):
-            rows = ids.clamp(min=0).to(torch.int64)
-            exact = torch.einsum("qwd,qd->qw", packed.rerank[rows], Q)
+            exact = _exact_scores(packed.rerank, Q, ids)
             exact = torch.where(ids >= 0, exact, _NEG_INF)
         with span("search.dedup"):
             di, dv = _pad_topk(*dedup_topk_window(ids, exact, final_k, multiplicity),
@@ -244,32 +262,53 @@ def _search_pass(packed: PackedIVF, Q: torch.Tensor, router, top_t: int,
         bi, bv = dedup_ranked(ci, cv, rerank_budget)
         if survivors:
             surviving = torch.isfinite(bv).sum(-1)
-    with span("search.rerank"):
-        exact = torch.einsum("qbd,qd->qb",
-                             packed.rerank[bi.clamp(min=0).to(torch.int64)], Q)
-        exact = torch.where(torch.isfinite(bv), exact, _NEG_INF)
-        fv, fpos = topk_first(exact, min(final_k, exact.shape[-1]))
-        fi, fv = _pad_topk(torch.gather(bi, -1, fpos), fv, final_k)
+    with span("search.rerank") as rr:
+        if isinstance(packed.rerank, Int8Data):
+            fi, fv = int8_rerank(Q, packed.rerank, bi, bv, final_k)
+        else:
+            exact = torch.einsum("qbd,qd->qb",
+                                 packed.rerank[bi.clamp(min=0).to(torch.int64)], Q)
+            exact = torch.where(torch.isfinite(bv), exact, _NEG_INF)
+            fv, fpos = topk_first(exact, min(final_k, exact.shape[-1]))
+            fi, fv = _pad_topk(torch.gather(bi, -1, fpos), fv, final_k)
+        if recording():
+            _count_rerank(rr, packed.rerank, bv[:rows])
     return fi, fv, surviving
+
+
+def _count_rerank(sp, rerank, bv: torch.Tensor) -> None:
+    """The rerank's counts over the queries' rows of its (·, budget) PQ
+    scores bv: `rows`, the valid (finite) candidates, and `row_bytes`, the
+    rerank rows and scales read: d + 4 bytes a valid candidate from int8
+    rows (the kernel reads no other), 4d a slot from f32 rows (the gather
+    reads every slot's row)."""
+    valid = torch.isfinite(bv)
+    d = rerank_table(rerank).shape[1]
+    if isinstance(rerank, Int8Data):
+        sp.count(rows=valid, row_bytes=valid.sum() * (d + 4))
+    else:
+        sp.count(rows=valid, row_bytes=bv.numel() * 4 * d)
 
 
 def _search_block(packed: PackedIVF, Q: torch.Tensor, router, top_t: int, final_k: int,
                   rerank_budget: int, multiplicity: int = 2,
-                  filter: Optional[torch.Tensor] = None, escalate: bool = False):
+                  filter: Optional[torch.Tensor] = None, escalate: bool = False,
+                  rows: Optional[int] = None):
     """One `_search_pass`, plus, on the filtered path only, a second pass
     one router-escalation step up (flat: doubled top_t; tree: doubled top_t
     and t_route) whose rows replace the first pass's where its surviving
     window was thinner than the stage budget. router and top_t: the
-    call's, resolved and clamped once (`search_jit_batched`)."""
+    call's, resolved and clamped once (`search_jit_batched`); rows: the
+    queries among Q's rows, the first ones (None: all)."""
     ids1, vals1, surv1 = _search_pass(packed, Q, router, top_t, final_k,
-                                      rerank_budget, multiplicity, filter)
+                                      rerank_budget, multiplicity, filter, rows=rows)
     if filter is None or not escalate or not router.can_escalate(top_t):
         return ids1, vals1
     thresh = rerank_budget if packed.part_codes is not None else final_k
     with span("search.escalate", rows=Q.shape[0]) as esc:
         r2, t2 = router.escalated(top_t)
         ids2, vals2, _ = _search_pass(packed, Q, r2, t2, final_k, rerank_budget,
-                                      multiplicity, filter)
+                                      multiplicity, filter, rows=rows)
         need = (surv1 < thresh)[:, None]
         esc.count(kept=need)
         return torch.where(need, ids2, ids1), torch.where(need, vals2, vals1)
@@ -338,7 +377,8 @@ def _budget_pass(sub: _Subset, Q: torch.Tensor, router, top_t: int, final_k: int
         count(probed=live, gathered=torch.where(live, sub.extent[parts], 0),
               scored=torch.where(live, sub.packed.extent[parts], 0))
     ids, vals, surv = _search_pass(sub.packed, Q, router, top_t, final_k, rerank_budget,
-                                   multiplicity, route=(psc, parts), survivors=True)
+                                   multiplicity, route=(psc, parts), survivors=True,
+                                   rows=rows)
     # a rank past the candidates found holds -1 (not a copy of a found id)
     return torch.where(torch.isfinite(vals), ids, -1), vals, surv
 
@@ -466,8 +506,8 @@ def _filter_bits(packed: PackedIVF, filter) -> Optional[torch.Tensor]:
     None). A length other than the index's point count raises."""
     if filter is None:
         return None
-    bits = as_tensor(filter, packed.rerank.device)
-    n = packed.rerank.shape[0]
+    bits = as_tensor(filter, packed.centroids.device)
+    n = rerank_table(packed.rerank).shape[0]
     if bits.dim() != 1 or bits.shape[0] != n:
         raise ValueError(f"filter must be an ({n},) bitmap over the index's "
                          f"points, got shape {tuple(bits.shape)}")
@@ -558,7 +598,8 @@ def search_jit_batched(packed: PackedIVF, Q, top_t: int, final_k: int,
                     rerank_budget, multiplicity, tile_rows)
             else:
                 ids, vals = _search_block(packed, Qt, router, top_t, final_k, rerank_budget,
-                                          multiplicity, filter, escalate)
+                                          multiplicity, filter, escalate,
+                                          max(0, min(n, real - i0)))
             outs.append((ids[:n], vals[:n]))
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
 
@@ -668,9 +709,7 @@ def search_numpy(index: IVFIndex, Q, top_t: int, final_k: int = 10,
         mm = as_tensor(filter_mask, dev).reshape(-1)[:n].to(torch.bool)
         fm = torch.zeros(n, dtype=torch.bool, device=dev)
         fm[:mm.shape[0]] = mm
-    data = index.rerank_f32
-    if data is None:
-        data = int8_dequantize(index.rerank_int8)
+    data = index.rerank_f32 if index.rerank_f32 is not None else index.rerank_int8
     out, row_lens, uniq = _search_numpy_pass(index, Q, data, router, top_t,
                                              final_k, rerank_budget, fm)
     if fm is not None and escalate:
@@ -687,7 +726,7 @@ def search_numpy(index: IVFIndex, Q, top_t: int, final_k: int = 10,
     return out, SearchStats(row_lens, uniq)
 
 
-def _search_numpy_pass(index: IVFIndex, Q: torch.Tensor, data: torch.Tensor,
+def _search_numpy_pass(index: IVFIndex, Q: torch.Tensor, data,
                        router, top_t: int, final_k: int, rerank_budget: int,
                        fm: Optional[torch.Tensor]):
     """One fixed-top_t pass of the host engine → (out, points_read,
@@ -713,7 +752,7 @@ def _search_numpy_pass(index: IVFIndex, Q: torch.Tensor, data: torch.Tensor,
     return out, row_lens, uniq
 
 
-def _search_numpy_chunk(index: IVFIndex, Q: torch.Tensor, data: torch.Tensor,
+def _search_numpy_chunk(index: IVFIndex, Q: torch.Tensor, data,
                         psc: torch.Tensor, top_parts: torch.Tensor, final_k: int,
                         rerank_budget: int, fm: Optional[torch.Tensor]):
     """The gather, scoring, dedup and rerank of one chunk of queries →
@@ -749,7 +788,10 @@ def _search_numpy_chunk(index: IVFIndex, Q: torch.Tensor, data: torch.Tensor,
         sel = _run_starts(torch.sort(key, stable=True).indices, key)
     qs, ids_sel = qidx[sel], cand_ids[sel]
     uniq = torch.bincount(qs, minlength=nq)
-    exact = (data[ids_sel] * Q[qs]).sum(1)
+    if isinstance(data, Int8Data):
+        exact = int8_scores_ref(Q[qs], data.q, data.scale, ids_sel[:, None])[:, 0]
+    else:
+        exact = (data[ids_sel] * Q[qs]).sum(1)
     order = _lexsort_desc(exact, qs)
     qs, ids_sel = qs[order], ids_sel[order]
     rank = _group_ranks(qs, nq)

@@ -45,6 +45,7 @@ SIGNATURES = {
                            _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "tree_route_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "pq_score_launch": (_P, _P, _I, _I, _I, _P, _P),
+    "int8_rerank_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "kmeans_pp_launch": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P, _P, _P),
 }

@@ -2,7 +2,8 @@
 
 Counterparts of `repro/kernels/ref.py` plus the Lloyd sweep, the
 two-level route, the probe-id window scorer and its selecting form,
-and k-means++ seeding (the pick loop and its integer-CDF draw): each computes the same
+k-means++ seeding (the pick loop and its integer-CDF draw) and the int8
+rerank: each computes the same
 function as its kernel, in tensor ops, on any device. The kernel
 wrappers take these for CPU tensors; the tests hold them against the JAX
 package, and `chip_smoke.py` holds the kernels against them on the card.
@@ -100,6 +101,32 @@ def pq_score_probes_select_ref(luts: torch.Tensor, part_codes: torch.Tensor,
     ids = torch.where(v > float("-inf"), torch.gather(ids, 1, pos), -1).to(torch.int32)
     short = keep - v.shape[1]
     return (torch.nn.functional.pad(ids, (0, short), value=-1),
+            torch.nn.functional.pad(v, (0, short), value=float("-inf")))
+
+
+def int8_scores_ref(Q: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                    ids: torch.Tensor) -> torch.Tensor:
+    """Q (nq, d) f32, codes (n, d) int8, scale (n,) f32, ids (nq, w) int
+    in [0, n) → (nq, w) f32: ⟨Q[q], codes[id]⟩ summed in f32, times
+    scale[id]. The rerank of the int8 rows on the CPU, and on any device
+    the exact-window path's scores."""
+    rows = ids.to(torch.int64)
+    return torch.einsum("qwd,qd->qw", codes[rows].to(torch.float32), Q) * scale[rows]
+
+
+def int8_rerank_ref(Q: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                    ids: torch.Tensor, approx: torch.Tensor, k: int):
+    """`csrc/int8_rerank.cu`'s function: ids, approx (nq, B) → (ids (nq,
+    k) int32, scores (nq, k) f32). A slot whose approx is finite scores
+    `int8_scores_ref`, any other −inf; each query's top k slots by
+    `topk_first` with their ids, (−1, −inf) past B."""
+    ok = torch.isfinite(approx)
+    s = torch.where(ok, int8_scores_ref(Q, codes, scale, torch.where(ok, ids, 0)),
+                    float("-inf"))
+    v, pos = topk_first(s, min(k, s.shape[1]))
+    out = torch.gather(ids, 1, pos).to(torch.int32)
+    short = k - v.shape[1]
+    return (torch.nn.functional.pad(out, (0, short), value=-1),
             torch.nn.functional.pad(v, (0, short), value=float("-inf")))
 
 

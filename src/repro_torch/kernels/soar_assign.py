@@ -27,6 +27,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import soar_assign_ref, vq_assign_ref
 from repro_torch.kernels.vq_assign import (PreparedCodebook, prepare_centroids,
                                            vq_assign_prepared)
+from repro_torch.spans import span
 
 SPILL_CHUNK = 8192     # rows per step of the plain spill columns
 
@@ -121,7 +122,7 @@ def assign_fused(X: torch.Tensor, C: torch.Tensor, lam: float = 1.0,
     residual r̂ in plain torch, then the soar kernel, whose loss is the
     multi-spill objective's after one spill. On the card the codebook is
     prepared once for both launches. Columns after the first spill run in
-    plain torch (`spill_columns`). Returns (n, 1 + n_spills) int32, column
+    plain torch (`spill_columns`, the span "build.spill_columns"). Returns (n, 1 + n_spills) int32, column
     0 primary.
     """
     X = X.to(torch.float32).contiguous()
@@ -139,4 +140,6 @@ def assign_fused(X: torch.Tensor, C: torch.Tensor, lam: float = 1.0,
     first = torch.stack([prim, sec], dim=1)
     if n_spills == 1:
         return first
-    return torch.cat([first, spill_columns(X, C, rhat, first, lam, n_spills - 1)], 1)
+    with span("build.spill_columns"):
+        more = spill_columns(X, C, rhat, first, lam, n_spills - 1)
+    return torch.cat([first, more], 1)

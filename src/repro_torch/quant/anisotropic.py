@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.spans import span
+
 ASSIGN_CHUNK = 8192
 # elements of one gathered (centroids, rows, d) block of the update
 ACCUM_ELEMS = 1 << 24
@@ -95,13 +97,18 @@ def anisotropic_kmeans(gen: torch.Generator, X: torch.Tensor, c: int, eta: float
     """Anisotropic-loss VQ: Euclidean k-means (3 Lloyd sweeps) as the
     start, then `iters` rounds of score-aware assignment and the exact
     per-centroid solve. Returns (C (c, d), assign (n,) int32 under the
-    final C)."""
+    final C). Each assignment is the span "anisotropic.assign", each
+    solve "anisotropic.update"."""
     from repro_torch.core.kmeans import train_kmeans
     X = X.to(torch.float32).contiguous()
     C = train_kmeans(gen, X, c, iters=3, final_assign=False).centroids
     for _ in range(iters):
-        C = _anisotropic_update(X, C, anisotropic_assign(X, C, eta, chunk), eta)
-    return C, anisotropic_assign(X, C, eta, chunk)
+        with span("anisotropic.assign"):
+            a = anisotropic_assign(X, C, eta, chunk)
+        with span("anisotropic.update"):
+            C = _anisotropic_update(X, C, a, eta)
+    with span("anisotropic.assign"):
+        return C, anisotropic_assign(X, C, eta, chunk)
 
 
 def anisotropic_loss_values(X: torch.Tensor, C: torch.Tensor, assign: torch.Tensor,

@@ -14,24 +14,44 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.spans import span
+
 
 class Int8Data(NamedTuple):
     q: torch.Tensor        # (n, d) int8
     scale: torch.Tensor    # (n,) f32 per-row scale
 
+    def to(self, device) -> "Int8Data":
+        """Both tensors on `device` (themselves where they lie there)."""
+        return Int8Data(self.q.to(device), self.scale.to(device))
+
 
 def int8_quantize(X: torch.Tensor) -> Int8Data:
-    """(n, d) f32 → Int8Data (codes (n, d) int8, scales (n,) f32)."""
-    X = X.to(torch.float32)
-    amax = X.abs().amax(dim=-1).clamp(min=1e-12)
-    scale = amax * torch.tensor(1.0 / 127.0, dtype=torch.float32, device=X.device)
-    q = torch.round(X / scale[:, None]).clamp(-127, 127).to(torch.int8)
-    return Int8Data(q, scale)
+    """(n, d) f32 → Int8Data (codes (n, d) int8, scales (n,) f32). The
+    span "int8.quantize"."""
+    with span("int8.quantize"):
+        X = X.to(torch.float32)
+        amax = X.abs().amax(dim=-1).clamp(min=1e-12)
+        scale = amax * torch.tensor(1.0 / 127.0, dtype=torch.float32, device=X.device)
+        q = torch.round(X / scale[:, None]).clamp(-127, 127).to(torch.int8)
+        return Int8Data(q, scale)
 
 
 def int8_dequantize(data: Int8Data) -> torch.Tensor:
     """Int8Data → (n, d) f32 rows, code × scale."""
     return data.q.to(torch.float32) * data.scale[:, None]
+
+
+def rerank_f32(rows) -> torch.Tensor:
+    """A rerank table as (n, d) f32 rows: f32 rows as they are, Int8Data
+    dequantized (for the paths that keep f32 rows: the shard-parallel
+    search, the kNN memory's keys, the rebuild comparator)."""
+    return int8_dequantize(rows) if isinstance(rows, Int8Data) else rows
+
+
+def rerank_table(rows) -> torch.Tensor:
+    """The (n, d) tensor of a rerank table: its f32 rows or its int8 codes."""
+    return rows.q if isinstance(rows, Int8Data) else rows
 
 
 def int8_score(q: torch.Tensor, data: Int8Data, ids: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,7 @@ from repro_torch.ckpt.index_store import load_snapshot, save_snapshot
 from repro_torch.core.ivf import build_ivf
 from repro_torch.core.mutable import MutableIVF, _grow_rows
 from repro_torch.core.search import pad_queries, search_jit_batched, search_numpy
+from repro_torch.quant.int8 import rerank_f32
 from repro_torch.serve.api import (DEFAULT_TOP_T, SearchParams, SearchResult,
                                    validate_queries)
 from repro_torch.utils import Device, as_tensor, resolve_device
@@ -103,8 +104,9 @@ class KNNMemory:
 
     @property
     def keys(self) -> torch.Tensor:
-        """Cached keys by id — the index's rerank rows are the key store."""
-        return self.index.rerank[:self.index.n_total]
+        """Cached keys by id — the index's rerank rows are the key store
+        (f32; int8 rows dequantized)."""
+        return rerank_f32(self.index.rerank)[:self.index.n_total]
 
     def add(self, keys, values, segment=0) -> np.ndarray:
         """Append fresh KV pairs (e.g. newly decoded positions); returns

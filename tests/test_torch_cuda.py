@@ -48,6 +48,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import kmeans_pp as kmeans_pp_mod  # noqa: E402
 from repro_torch.kernels import lloyd as lloyd_mod  # noqa: E402
 from repro_torch.kernels.kmeans_pp import kmeans_pp  # noqa: E402
+from repro_torch.kernels.int8_rerank import int8_rerank  # noqa: E402
 from repro_torch.kernels.lloyd import lloyd_sweep  # noqa: E402
 from repro_torch.kernels.pq_score import (pq_score, pq_score_probes,  # noqa: E402
                                           pq_score_probes_select)
@@ -55,7 +56,7 @@ from repro_torch.kernels.soar_assign import assign_fused, soar_assign  # noqa: E
 from repro_torch.kernels.tree_route import tree_route  # noqa: E402
 from repro_torch.kernels.vq_assign import vq_assign  # noqa: E402
 from repro_torch.quant.anisotropic import anisotropic_assign, eta_from_threshold  # noqa: E402
-from repro_torch.quant.int8 import int8_quantize  # noqa: E402
+from repro_torch.quant.int8 import Int8Data, int8_dequantize, int8_quantize  # noqa: E402
 from repro_torch.core import distributed as dist_mod  # noqa: E402
 from repro_torch.core.distributed import make_replicated_search  # noqa: E402
 from repro_torch.core.search import pad_queries  # noqa: E402
@@ -219,6 +220,125 @@ def test_search_through_the_select_on_card_is_the_window_paths_bits(cuda, monkey
     fin = torch.isfinite(wv)
     assert torch.equal(si[fin], wi[fin]) and bool((si[~fin] == -1).all())
     assert float(fin.float().mean()) > 0.9
+
+
+def int8_case(nq, B, n, d, seed=0, integer=True):
+    """Q, int8 rows with scales, candidate ids and PQ scores for the int8
+    rerank: integer Q in [-8, 8] makes every ⟨q, x₈⟩ an exact f32 sum, so
+    the kernel's and the plain version's scores are the same bits in any
+    order (ties included); else unit-norm queries."""
+    rng = np.random.default_rng(seed)
+    Q = (rng.integers(-8, 9, (nq, d)) if integer else rng.standard_normal((nq, d)))
+    Q = Q.astype(np.float32)
+    if not integer:
+        Q /= np.linalg.norm(Q, axis=1, keepdims=True)
+    q = rng.integers(-127, 128, (n, d)).astype(np.int8)
+    scale = (rng.random(n) * 0.01 + 1e-3).astype(np.float32)
+    ids = rng.integers(0, n, (nq, B)).astype(np.int32)
+    approx = rng.standard_normal((nq, B)).astype(np.float32)
+    approx[rng.random((nq, B)) < 0.05] = -np.inf          # the dedup's dropped slots
+    return Q, q, scale, ids, approx
+
+
+@pytest.mark.parametrize("nq,B,n,d,k", [(128, 256, 200_000, 100, 10),   # glove's tile
+                                        (128, 256, 50_000, 96, 10),
+                                        (37, 200, 5_000, 30, 10),       # bytes, not words
+                                        (3, 7, 100, 8, 10),             # B < k
+                                        (16, 2048, 10_000, 100, 64)])
+def test_int8_rerank_is_its_plain_versions_bits(cuda, nq, B, n, d, k):
+    Q, q, scale, ids, approx = (torch.from_numpy(a).to(cuda)
+                                for a in int8_case(nq, B, n, d))
+    rows = Int8Data(q, scale)
+    n0 = int8_rerank.launches
+    gi, gv = int8_rerank(Q, rows, ids, approx, k)
+    torch.cuda.synchronize()
+    assert int8_rerank.launches == n0 + 1
+    wi, wv = ref.int8_rerank_ref(Q, q, scale, ids, approx, k)
+    assert torch.equal(gv, wv) and torch.equal(gi, wi)
+
+
+def test_int8_rerank_on_glove_tiles_within_f32_rounding(cuda):
+    """Unit queries at glove's tile: scores within f32 rounding of the
+    plain version's (another order of the sum), the same ids wherever no
+    score lies within that rounding of its neighbour's."""
+    Q, q, scale, ids, approx = (torch.from_numpy(a).to(cuda)
+                                for a in int8_case(128, 256, 1_183_514, 100, 3, False))
+    gi, gv = int8_rerank(Q, Int8Data(q, scale), ids, approx, 11)
+    wi, wv = ref.int8_rerank_ref(Q, q, scale, ids, approx, 11)
+    torch.testing.assert_close(gv, wv, rtol=1e-5, atol=1e-7)
+    tol = 1e-5 * wv.abs()
+    near = torch.zeros_like(wv, dtype=torch.bool)
+    near[:, 1:] |= (wv[:, 1:] - wv[:, :-1]).abs() <= tol[:, 1:]
+    near[:, :-1] |= (wv[:, :-1] - wv[:, 1:]).abs() <= tol[:, :-1]
+    clear = ~near[:, :10]
+    assert float(clear.float().mean()) > 0.9
+    assert torch.equal(gi[:, :10][clear], wi[:, :10][clear])
+
+
+def test_int8_rerank_refuses_what_it_cannot_take(cuda):
+    Q, q, scale, ids, approx = (torch.from_numpy(a).to(cuda) for a in int8_case(2, 5, 10, 8))
+    n0 = int8_rerank.launches
+    with pytest.raises(ValueError):
+        int8_rerank(Q, Int8Data(q, scale), ids.long(), approx, 3)
+    with pytest.raises(ValueError):
+        int8_rerank(Q, Int8Data(q, scale), ids, approx[:, :4], 3)
+    with pytest.raises(ValueError):
+        int8_rerank(Q.cpu(), Int8Data(q, scale), ids, approx, 3)
+    assert int8_rerank.launches == n0
+
+
+def test_the_f32_rerank_is_the_parents_bits_on_a_glove_tile(cuda):
+    """The f32 index's rerank on the card, at glove's width, budget and
+    tile, is the parent's composition bit for bit: a product over the
+    gathered rows, −inf where the PQ score is, a stable top k and the
+    ids' gather; the int8 kernel never launches."""
+    ds = make_manifold(0, 60_000, 100, nq=128, device="cpu")
+    idx = build_ivf_sharded(torch.Generator().manual_seed(0), ds.X, 100, pq_subspaces=50,
+                            device=cuda)
+    packed = pack_ivf(idx)
+    assert packed.rerank.dtype == torch.float32
+    Q = ds.Q.to(cuda)
+    bi, bv = [], []
+    real = search_mod.dedup_ranked
+
+    def keep(*a):
+        out = real(*a)
+        bi.append(out[0])
+        bv.append(out[1])
+        return out
+    n0 = int8_rerank.launches
+    search_mod.dedup_ranked = keep
+    try:
+        fi, fv = search_jit_batched(packed, Q, top_t=40, final_k=10, rerank_budget=256, bq=128)
+    finally:
+        search_mod.dedup_ranked = real
+    assert int8_rerank.launches == n0 and len(bi) == 1
+    exact = torch.einsum("qbd,qd->qb", packed.rerank[bi[0].clamp(min=0).to(torch.int64)], Q)
+    exact = torch.where(torch.isfinite(bv[0]), exact, float("-inf"))
+    v, pos = torch.sort(exact, dim=-1, descending=True, stable=True)
+    assert torch.equal(fv, v[:, :10]) and torch.equal(fi, torch.gather(bi[0], -1, pos[:, :10]))
+
+
+def test_the_int8_index_serves_through_the_kernel_on_card(cuda):
+    """An int8 index behind `AnnEngine` on the card: its rows stay int8,
+    the rerank launches the kernel once a tile, and the answers are the
+    CPU's plain path's, to the rounding of the kernel's sum order."""
+    ds = make_manifold(1, 20_000, 32, nq=300, device="cpu")
+    kw = dict(spill_mode="soar", n_spills=2, anisotropic_T=0.2, rerank="int8",
+              pq_subspaces=8, train_sample=8192, shard_size=4096)
+    idx = build_ivf_sharded(torch.Generator().manual_seed(0), ds.X, 64, device="cpu", **kw)
+    card = AnnEngine(MutableIVF.from_index(_to(idx, cuda)), top_t=8, rerank_budget=64, bq=64)
+    host = AnnEngine(MutableIVF.from_index(idx), top_t=8, rerank_budget=64, bq=64)
+    assert isinstance(card.index.rerank, Int8Data) and card.index.rerank.q.is_cuda
+    n0 = int8_rerank.launches
+    rc = card.search_request(ds.Q.numpy(), SearchParams(k=10))
+    assert int8_rerank.launches == n0 + 5                   # 300 queries: 5 tiles of 64
+    rh = host.search_request(ds.Q.numpy(), SearchParams(k=10))
+    assert (rc.ids == rh.ids).mean() >= 0.99
+    np.testing.assert_allclose(rc.scores, rh.scores, rtol=1e-5, atol=1e-6)
+    new = card.add(ds.X[:100].numpy() * 0.5)
+    want = int8_quantize(ds.X[:100].to(cuda) * 0.5)
+    assert torch.equal(card.index.rerank.q[torch.from_numpy(new).long()], want.q)
 
 
 def test_pq_score_probes_refuses_a_misaligned_table(cuda):
@@ -534,14 +654,18 @@ def test_pq_score_repeats_and_takes_any_alignment(cuda):
 
 
 def _to(idx, device):
-    """The port's IVFIndex, its tree router included, moved to another device."""
+    """The port's IVFIndex, its tree router and int8 rows included, moved
+    to another device."""
     fields = {
         "centroids": idx.centroids.cpu().numpy(), "starts": idx.starts.cpu().numpy(),
         "point_ids": idx.point_ids.cpu().numpy(), "codes": idx.codes.cpu().numpy(),
         "pq.centers": idx.pq.centers.cpu().numpy(),
-        "rerank_f32": idx.rerank_f32.cpu().numpy(),
+        "rerank_f32": None if idx.rerank_f32 is None else idx.rerank_f32.cpu().numpy(),
         "assignments": idx.assignments.cpu().numpy(), "n_points": idx.n_points,
         "spill_mode": idx.spill_mode, "lam": idx.lam}
+    if idx.rerank_int8 is not None:
+        fields["rerank_int8.q"] = idx.rerank_int8.q.cpu().numpy()
+        fields["rerank_int8.scale"] = idx.rerank_int8.scale.cpu().numpy()
     rt = idx.router
     if rt is not None:
         fields.update({

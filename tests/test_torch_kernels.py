@@ -19,6 +19,7 @@ from repro.kernels.soar_assign import _fused_assign_gemm as jax_fused_gemm  # no
 from repro.kernels.soar_assign import assign_fused as jax_assign_fused  # noqa: E402
 
 from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels.int8_rerank import int8_rerank  # noqa: E402
 from repro_torch.kernels import kmeans_pp as kmeans_pp_mod  # noqa: E402
 from repro_torch.kernels.kmeans_pp import kmeans_pp  # noqa: E402
 from repro_torch.kernels import ops as torch_ops  # noqa: E402
@@ -28,6 +29,7 @@ from repro_torch.kernels.pq_score import (pq_score, pq_score_probes,  # noqa: E4
 from repro_torch.kernels.tree_route import tree_route  # noqa: E402
 from repro_torch.kernels.soar_assign import assign_fused, soar_assign  # noqa: E402
 from repro_torch.kernels.vq_assign import vq_assign  # noqa: E402
+from repro_torch.quant.int8 import Int8Data  # noqa: E402
 from test_torch_cuda import probe_case, select_case  # noqa: E402
 
 
@@ -220,7 +222,7 @@ def test_cpu_path_launches_nothing():
 
 
 @pytest.mark.parametrize("which", ["pq", "select", "vq", "soar", "fused", "lloyd", "dense",
-                                   "tree", "kmeans_pp"])
+                                   "tree", "kmeans_pp", "int8_rerank"])
 def test_non_cpu_tensor_never_falls_back(which):
     """A tensor that is not on the CPU must launch the kernel or raise;
     a meta tensor can do neither, so the wrapper must raise. The probe
@@ -255,6 +257,12 @@ def test_non_cpu_tensor_never_falls_back(which):
         "kmeans_pp": lambda: kmeans_pp(torch.zeros((1, 8, 4)),
                                        torch.empty(1, dtype=torch.int64, device="meta"),
                                        torch.empty((3, 1), device="meta")),
+        "int8_rerank": lambda: int8_rerank(
+            torch.zeros((1, 4)),
+            Int8Data(torch.empty((3, 4), dtype=torch.int8, device="meta"),
+                     torch.empty(3, device="meta")),
+            torch.empty((1, 2), dtype=torch.int32, device="meta"),
+            torch.empty((1, 2), device="meta"), 1),
     }
     with pytest.raises(ValueError, match="CUDA tensors"):
         calls[which]()
@@ -272,7 +280,7 @@ def test_library_name_follows_sources():
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libreprotorch_")
     assert {f.name for f in _build.CSRC.glob("*.cu")} == {
         "pq_score.cu", "pq_score_probes.cu", "vq_assign.cu", "soar_assign.cu",
-        "lloyd.cu", "tree_route.cu", "kmeans_pp.cu"}
+        "lloyd.cu", "tree_route.cu", "kmeans_pp.cu", "int8_rerank.cu"}
 
 
 # ------------------------------------------------ k-means++ seeding kernel

@@ -480,7 +480,9 @@ def test_engine_validation_and_metadata(engine, data):
     np.testing.assert_array_equal(r.ids, engine.search(fixed, k=3)[0])
     r = engine.search_request(data[1][:3], api.SearchParams(k=4, deadline_ms=1000.0))
     assert r.nq == 3 and r.k == 4 and r.engine_us > 0 and r.queued_us == 0.0
-    assert r.deadline_met() is True and r.total_us == r.engine_us
+    # the deadline is judged on the request's own engine time, which a
+    # loaded machine may stretch past the 1-s budget
+    assert r.deadline_met() is (r.engine_us <= 1000.0 * 1e3) and r.total_us == r.engine_us
     r0 = engine.search_request(np.empty((0, D), np.float32))
     assert r0.nq == 0 and r0.ids.shape == (0, 10)
     with pytest.raises(ValueError):

@@ -276,6 +276,50 @@ def test_build_timings_keep_their_keys_and_the_build_spans_appear(data):
         assert (s.end_ns - s.start_ns) * 1e-9 >= t_on[key] * 0.5
 
 
+def test_the_variant_build_spans_appear(data):
+    """Two SOAR spills, an anisotropic codebook and int8 rows: the
+    codebook's "anisotropic.assign" (a round and the final one) and
+    "anisotropic.update" (a round) under "build.kmeans", the third
+    column's "build.spill_columns" once a shard under
+    "build.spill_assign", and "int8.quantize" under "build.rerank"."""
+    X, _ = data
+    with profiling():
+        build_ivf_sharded(torch.Generator().manual_seed(2), X, 24, pq_subspaces=8,
+                          train_sample=2048, shard_size=1024, train_iters=12, n_spills=2,
+                          anisotropic_T=0.2, rerank="int8", device="cpu")
+    recs = spans.spans()
+    (root,) = [s for s in recs if s.parent == 0]
+    phases = {s.name: s for s in children(recs, root)}
+    under = lambda p: [s.name for s in children(recs, phases["build." + p])]  # noqa: E731
+    kmeans = under("kmeans")
+    assert set(kmeans) == {"kmeans.sample", "kmeans.seed", "kmeans.lloyd",
+                           "anisotropic.assign", "anisotropic.update"}
+    assert kmeans.count("anisotropic.update") == 4 and kmeans.count("anisotropic.assign") == 5
+    assert under("spill_assign") == ["build.spill_columns"] * 4      # 4,000 rows, shards of 1,024
+    assert under("rerank") == ["int8.quantize"]
+
+
+@pytest.mark.parametrize("rerank", ["f32", "int8"])
+def test_the_rerank_counts_its_rows_and_bytes(data, rerank):
+    """"search.rerank" counts the valid candidates of the call's queries
+    (`rows`, the pad rows of the last tile left out) and the bytes of rows
+    and scales it read: d + 4 a valid candidate from int8 rows, 4d every
+    slot from f32 rows."""
+    X, Q = data
+    eng = AnnEngine.build(torch.Generator().manual_seed(5), X, 24, pq_subspaces=8,
+                          top_t=6, rerank_budget=48, bq=16, train_sample=2048,
+                          shard_size=1024, rerank=rerank, device="cpu")
+    with profiling():
+        eng.search_request(Q.numpy(), SearchParams(k=10))
+    rr = [s for s in spans.spans() if s.name == "search.rerank"]
+    assert len(rr) == 3
+    rows = sum(s.counts["rows"] for s in rr)
+    nbytes = sum(s.counts["row_bytes"] for s in rr)
+    assert all(isinstance(s.counts["row_bytes"], int) for s in rr)
+    assert 40 * 10 <= rows <= 40 * 48
+    assert nbytes == (rows * (16 + 4) if rerank == "int8" else 40 * 48 * 4 * 16)
+
+
 def test_count_adds_to_the_innermost_span_of_its_thread():
     """`spans.count` counts into the span innermost on the calling thread
     while a profiler records, and does nothing otherwise."""
